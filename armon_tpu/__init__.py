@@ -1,8 +1,7 @@
-"""Armon-TPU: a TPU-native 2D compressible-hydrodynamics engine.
+"""Armon in JAX: a 2D compressible-hydrodynamics engine.
 
-Brand-new JAX/XLA/Pallas rebuild of the capabilities of Keluaa/Armon.jl
-(reference mounted read-only at /root/reference — see SURVEY.md for the
-structural map): a dimensionally-split Lagrange-projection finite-volume
+A JAX/XLA rebuild of the capabilities of Keluaa/Armon.jl (see SURVEY.md for
+the structural map): a dimensionally-split Lagrange-projection finite-volume
 solver for compressible non-viscous fluids.
 
 Public API (parity with `src/Armon.jl:15-16`):

@@ -6,7 +6,7 @@ shell. Values are parsed as Python literals when possible.
 
 Examples:
     python -m armon_tpu test=Sod N=1000,1000 maxcycle=100 silent=1
-    python -m armon_tpu test=Sedov data_type=float32 kernel_tier=pallas \\
+    python -m armon_tpu test=Sedov data_type=float32 \\
         write_output=true output_file=sedov.csv
 """
 
@@ -15,6 +15,7 @@ import sys
 
 from .params import ArmonParameters
 from .core.solver import armon
+from .utils.compile_cache import enable_compile_cache
 
 
 def _parse(value: str):
@@ -53,4 +54,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     sys.exit(main())

@@ -9,7 +9,7 @@ recompile, exactly like the reference's type-parameterized `SolverState`
 parameters to kill dynamic dispatch.
 """
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -53,41 +53,6 @@ class SolverConfig:
     # remainder; its n_local - n_edge slack cells are dead by the padded
     # out-of-range-writes-are-dead design (docs/architecture.md).
     n_edge: Optional[Tuple[int, int]] = None
-
-    # kernel tier: "jnp" (pure-XLA reference tier) | "pallas" (fused Mosaic
-    # kernels) — the analog of the reference's CPU/GPU/Kokkos kernel backends
-    # generated by `@generic_kernel` (src/generic_kernel.jl:940-991).
-    kernel_tier: str = "jnp"
-
-    # VMEM tile-size hint, the reference's cache-block size option
-    # (src/parameters.jl:497-516); None = auto (parallel/blocking.py).
-    block_size: Optional[Tuple[int, int]] = None
-
-    # Whole-cycle pair-kernel routing (fused tier). Local grids with
-    # max(n_local) <= pair_threshold run both sweeps of a cycle in ONE
-    # kernel pass (launch-overhead amortization; the default 2048 is the
-    # measured crossover on the dev v5e-lite — retune per chip via the
-    # `pair_threshold` option or ARMON_PAIR_THRESHOLD). Applies to the
-    # LOCAL shard extent on meshes too — the pair kernel saves no
-    # collective rounds, and its full-width VMEM chunks lose to the
-    # per-sweep kernels at production widths (-28% at 8192², measured).
-    # <= 0 = per-sweep kernels everywhere.
-    pair_threshold: int = 2048
-
-    # Temporal blocking (fused tier): K cycles per kernel launch for
-    # launch-latency-bound tiny grids (the TPU analog of the reference's
-    # async block machine keeping small work fed, src/solver.jl:58-179).
-    # Applies only when `ops/pallas/sweep.multicycle_geom_ok` admits the
-    # grid (single device, single-tile, in-kernel mirror fills) — the dt
-    # recurrence, CFL reduction and stop conditions then run IN-kernel,
-    # bit-identical to the one-cycle path. <= 1 disables.
-    temporal_blocking: int = 8
-
-    # Fast-math in the fused f32 kernels (Newton-refined approximate
-    # reciprocal for divisions, ~1 ulp), the analog of the reference's
-    # `use_fast_math` build preference (`src/generic_kernel.jl:2-4`, default
-    # true there and here). f64 and interpret mode always use exact IEEE.
-    fast_math: bool = True
 
     @property
     def spmd(self) -> bool:

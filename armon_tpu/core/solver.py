@@ -16,6 +16,7 @@ output) on top of three drivers:
 All three trace the same op functions, so they are bit-identical.
 """
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass
@@ -24,10 +25,9 @@ from typing import Optional
 import numpy as np
 
 import jax
-import jax.numpy as jnp
 
 from ..utils.enums import Axis
-from ..utils.errors import SolverException, solver_error
+from ..utils.errors import solver_error
 from ..params import ArmonParameters
 from ..core.state import State
 from ..ops.init import init_state
@@ -38,7 +38,7 @@ from ..ops.projection import projection_remap
 from ..ops.reductions import conservation_vars
 from .step import make_time_loop, solver_cycle, ghost_exchange
 from .splitting import split_schedules
-from .timestep import next_time_step, dt_update
+from .timestep import next_time_step
 
 
 @dataclass
@@ -79,10 +79,7 @@ _FN_CACHE_MAX = 64
 def _cached(params, kind, build):
     if params.devices is not None:
         return build()
-    # reorder_grid shapes the mesh device order (make_mesh) but is not in
-    # SolverConfig — it must be part of the key or a same-config run with
-    # the other setting would reuse the wrong mesh.
-    key = (params.config, params.reorder_grid, kind)
+    key = (params.config, kind)
     fn = _FN_CACHE.get(key)
     if fn is None:
         fn = _FN_CACHE[key] = build()
@@ -99,27 +96,17 @@ def _mesh_and_specs(params):
     from ..parallel.mesh import make_mesh, shard_state_spec
     from jax.sharding import PartitionSpec as P
     cfg = params.config
-    mesh = make_mesh(cfg.proc_dims, cfg.axis_names, devices=params.devices,
-                     reorder=params.reorder_grid)
+    mesh = make_mesh(cfg.proc_dims, cfg.axis_names, devices=params.devices)
     spec = shard_state_spec(cfg.axis_names)
     state_spec = State(*([spec] * len(State._fields)))
     return mesh, state_spec, P()
 
 
-def _shard(params, fn, in_specs, out_specs, donate=None):
+def _shard(params, fn, in_specs, out_specs):
     """Wrap `fn` in shard_map over the params' mesh."""
     mesh, _, _ = _mesh_and_specs(params)
-    kw = {} if donate is None else {"donate_argnums": donate}
     return jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
-                                 out_specs=out_specs, check_vma=False), **kw)
-
-
-def _carry_spec(params):
-    """shard_map pytree spec for the fused tier's 5-field FusedCarry."""
-    from .step import FusedCarry
-    from ..parallel.mesh import shard_state_spec
-    spec = shard_state_spec(params.config.axis_names)
-    return FusedCarry(*([spec] * len(FusedCarry._fields)))
+                                 out_specs=out_specs, check_vma=False))
 
 
 def make_init(params):
@@ -146,144 +133,11 @@ def make_init(params):
     return _cached(params, "init", build)
 
 
-def make_init_fused(params):
-    """Jitted LEAN initial-condition builder for the fused tier: ONE
-    program running init_test + the cycle-0 EOS (`src/solver.jl:291-295`)
-    + the CFL seed reduction, returning only the 5 live `FusedCarry`
-    fields and the seed scalar. x/y/c/g/ustar/pstar are program-internal
-    (XLA frees them at their last use) and never become device-resident —
-    the fused-tier memory diet that lets the literal 16384² flagship fit
-    one 16 GB chip (VERDICT r4 #2). Bit-identical to `make_init` +
-    cycle-0 EOS + the fused seed of `make_time_loop`: same traced ops."""
-    cfg = params.config
-    from .step import FusedCarry
-    from ..ops.reductions import dt_cfl_min, pmin_dt
-    T = np.dtype(cfg.dtype).type
-
-    def build():
-        def init5(global_pos=(0, 0)):
-            state = init_state(cfg, global_pos=global_pos)
-            if cfg.maxcycle > 0:
-                state = update_eos(cfg, state)
-            if cfg.cst_dt:
-                seed = jnp.asarray(T(np.finfo(cfg.dtype).max))
-            else:
-                seed = dt_cfl_min(cfg, state)
-                if cfg.spmd:
-                    seed = pmin_dt(seed, cfg.axis_names)
-            return (FusedCarry(state.rho, state.u, state.v, state.E,
-                               state.p), seed)
-
-        if not cfg.spmd:
-            return jax.jit(lambda: init5())
-
-        def init_shard():
-            from jax import lax
-            ix = lax.axis_index(cfg.axis_names[0])
-            iy = lax.axis_index(cfg.axis_names[1])
-            return init5((ix * cfg.n_local[0], iy * cfg.n_local[1]))
-
-        _, _, rep = _mesh_and_specs(params)
-        return _shard(params, init_shard, in_specs=(),
-                      out_specs=(_carry_spec(params), rep))
-
-    return _cached(params, "init_fused", build)
-
-
-def make_jit_loop_lean(params):
-    """The lean fused-tier loop program (`step.make_time_loop_lean`):
-    (carry, t0, cycle0, dt0, local0) -> (carry, t, cycles, dt_last, lm, ok)
-    with only the 5 live fields crossing the program boundary."""
-    cfg = params.config
-
-    def build():
-        from .step import make_time_loop_lean
-        loop = make_time_loop_lean(cfg)
-        if not cfg.spmd:
-            return jax.jit(loop)
-        _, _, rep = _mesh_and_specs(params)
-        cspec = _carry_spec(params)
-        return _shard(params, loop,
-                      in_specs=(cspec, rep, rep, rep, rep),
-                      out_specs=(cspec, rep, rep, rep, rep, rep))
-
-    return _cached(params, "loop_lean", build)
-
-
-def make_rehydrate(params):
-    """Full `State` from a lean run's final `FusedCarry`: re-runs the
-    (deterministic) init + cycle-0 EOS for the fields the fused loop never
-    touches — bit-identical to the non-lean path's pass-through (x/y and
-    ustar/pstar=0 from init, c/g from the cycle-0 EOS over the INITIAL
-    fields, exactly what the full-state fused driver leaves behind). The
-    carry is donated so the 11-field output peaks at ~11 resident field
-    buffers, not 16 (the donation is a no-op on backends that ignore it,
-    e.g. CPU)."""
-    cfg = params.config
-
-    def build():
-        def rehy(fs, global_pos=(0, 0)):
-            st = init_state(cfg, global_pos=global_pos)
-            if cfg.maxcycle > 0:
-                st = update_eos(cfg, st)
-            return st._replace(rho=fs.rho, u=fs.u, v=fs.v, E=fs.E, p=fs.p)
-
-        if not cfg.spmd:
-            return jax.jit(rehy, donate_argnums=0)
-
-        def shard_fn(fs):
-            from jax import lax
-            ix = lax.axis_index(cfg.axis_names[0])
-            iy = lax.axis_index(cfg.axis_names[1])
-            return rehy(fs, (ix * cfg.n_local[0], iy * cfg.n_local[1]))
-
-        _, state_spec, _ = _mesh_and_specs(params)
-        return _shard(params, shard_fn, in_specs=(_carry_spec(params),),
-                      out_specs=state_spec, donate=0)
-
-    return _cached(params, "rehydrate", build)
-
-
-def make_conservation_lean(params):
-    """`make_conservation` over a FusedCarry (rho/E are all it reads) —
-    the lean driver's mass/energy check without rehydrating the state."""
-    cfg = params.config
-    from ..ops.reductions import conservation_scalar
-
-    def build():
-        if not cfg.spmd:
-            dev = jax.jit(lambda s: conservation_vars(cfg, s))
-        else:
-            def cons(state):
-                from jax import lax
-                m, e = conservation_vars(cfg, state)
-                if np.dtype(cfg.dtype).itemsize == 4:
-                    for ax in cfg.axis_names:
-                        m = lax.all_gather(m, ax)
-                        e = lax.all_gather(e, ax)
-                    return m, e
-                m = lax.psum(m, cfg.axis_names)
-                e = lax.psum(e, cfg.axis_names)
-                return m, e
-
-            _, _, rep = _mesh_and_specs(params)
-            dev = _shard(params, cons, in_specs=(_carry_spec(params),),
-                         out_specs=(rep, rep))
-
-        def call(state):
-            m, e = dev(state)
-            return conservation_scalar(cfg, m), conservation_scalar(cfg, e)
-
-        return call
-
-    return _cached(params, "conservation_lean", build)
-
-
 def make_conservation(params):
     """Returns a host-callable (state) -> (mass, energy) as Python f64
     floats — the f32 path's compensated (hi, lo) pairs are combined on
-    host (`conservation_scalar`), giving f64-grade drift measurement on
-    chips whose f64 is emulated."""
+    host (`conservation_scalar`), giving an f64-grade drift measurement of
+    an f32 run."""
     cfg = params.config
     from ..ops.reductions import conservation_scalar
 
@@ -331,12 +185,9 @@ def make_jit_loop(params, restore=False):
         if not cfg.spmd:
             return jax.jit(loop)
         _, state_spec, rep = _mesh_and_specs(params)
-        if restore:
-            return _shard(params, loop,
-                          in_specs=(state_spec, rep, rep, rep, rep),
-                          out_specs=(state_spec, rep, rep, rep, rep, rep))
-        return _shard(params, loop, in_specs=(state_spec,),
-                      out_specs=(state_spec, rep, rep, rep, rep, rep))
+        in_specs = (state_spec, rep, rep, rep) if restore else (state_spec,)
+        return _shard(params, loop, in_specs=in_specs,
+                      out_specs=(state_spec, rep, rep, rep, rep))
 
     return _cached(params, ("loop", restore), build)
 
@@ -347,23 +198,6 @@ def make_cycle(params):
 
 def _build_cycle(params):
     cfg = params.config
-    from .step import use_fused_tier
-    if use_fused_tier(cfg):
-        from .step import solver_cycle_fused
-
-        def cycle(state, dt_prev, cycle_idx, local_min):
-            # Per-cycle driver: no strip carry across host calls (the
-            # in-loop driver threads it; here each cycle re-assembles).
-            s, dt_use, dt_next, new_min, _strips, ok = solver_cycle_fused(
-                cfg, state, dt_prev, cycle_idx, local_min)
-            return s, dt_use, dt_next, new_min, ok
-
-        if not cfg.spmd:
-            return jax.jit(cycle)
-        _, state_spec, rep = _mesh_and_specs(params)
-        return _shard(params, cycle,
-                      in_specs=(state_spec, rep, rep, rep),
-                      out_specs=(state_spec, rep, rep, rep, rep))
 
     def cycle(state, dt_prev, cycle_idx):
         return solver_cycle(cfg, state, dt_prev, cycle_idx)
@@ -374,28 +208,6 @@ def _build_cycle(params):
     return _shard(params, cycle,
                   in_specs=(state_spec, rep, rep),
                   out_specs=(state_spec, rep, rep, rep))
-
-
-def _make_resume_cycle(params):
-    """jnp-tier cycle with an lm-override input: the FIRST cycle resumed
-    from a fused-tier checkpoint, whose saved state carries a stale sound
-    speed — the saved CFL carry replaces the state reduction for that one
-    cycle (see `step.solver_cycle`)."""
-    cfg = params.config
-
-    def build():
-        def cycle(state, dt_prev, cycle_idx, lm):
-            return solver_cycle(cfg, state, dt_prev, cycle_idx,
-                                lm_override=lm)
-
-        if not cfg.spmd:
-            return jax.jit(cycle)
-        _, state_spec, rep = _mesh_and_specs(params)
-        return _shard(params, cycle,
-                      in_specs=(state_spec, rep, rep, rep),
-                      out_specs=(state_spec, rep, rep, rep))
-
-    return _cached(params, "resume_cycle", build)
 
 
 # ------------------------------------------------------------------ drivers
@@ -420,9 +232,8 @@ def _python_cycle_driver(params, state, checkpoint=None, solver_log=None,
     t = T(0.0)
     cycles = 0
     dt_prev = T(0.0)
-    local_min = None  # fused-tier carry
     if restored is not None:
-        t, cycles, dt_prev, local_min = restored
+        t, cycles, dt_prev = restored
         cycles = int(cycles)
 
     if restored is None:
@@ -434,67 +245,16 @@ def _python_cycle_driver(params, state, checkpoint=None, solver_log=None,
             if checkpoint is not None and checkpoint("EOS_init", state, Axis.X, 0.0, 0):
                 return state, float(t), cycles, float(dt_prev)
 
-    from .step import use_fused_tier
-    fused = use_fused_tier(cfg) and checkpoint is None
-    params._ran_fused = fused
-    # Non-fused resume from a fused-tier checkpoint: the saved CFL carry
-    # overrides the first cycle's state reduction (state.c is stale).
-    resume_lm = None if fused else local_min
-    if not fused:
-        # Consumed via resume_lm only; cleared so later checkpoint_step
-        # saves record "no carry" (the jnp tier restores from state.c)
-        # instead of re-saving the original checkpoint's stale minimum.
-        local_min = None
-    # jnp-tier cycle program: the resume variant (lm-override input, NaN
-    # after the first cycle) serves the WHOLE resumed run so only one
-    # full-cycle program is compiled.
-    use_resume_cycle = (checkpoint is None and not fused
-                        and resume_lm is not None)
-    cycle_fn = None
-    if checkpoint is None:
-        cycle_fn = _make_resume_cycle(params) if use_resume_cycle \
-            else make_cycle(params)
-    if fused and local_min is None:
-        from ..ops.reductions import dt_cfl_min
-        from jax import lax
-
-        def seed_fn(s):
-            m = dt_cfl_min(cfg, s)
-            if cfg.spmd:
-                from ..ops.reductions import pmin_dt
-                m = pmin_dt(m, cfg.axis_names)
-            return m
-
-        seed = jax.jit(seed_fn) if not cfg.spmd else \
-            _shard(params, seed_fn,
-                   in_specs=(_mesh_and_specs(params)[1],),
-                   out_specs=_mesh_and_specs(params)[2])
-        local_min = seed(state) if not cfg.cst_dt else \
-            T(np.finfo(cfg.dtype).max)
+    cycle_fn = make_cycle(params) if checkpoint is None else None
 
     while t < T(cfg.maxtime) and cycles < cfg.maxcycle:
         cycle_start = time.perf_counter()
-        if fused:
-            state, dt_use, dt_next, local_min, ok = cycle_fn(
-                state, dt_prev, np.int32(cycles), local_min)
-        elif checkpoint is None:
-            if use_resume_cycle:
-                # One program for the whole resumed run: the override is
-                # live (non-NaN) for the first cycle only — avoids a
-                # second full-cycle compile (minutes on TPU) relative to
-                # switching back to the plain cycle program.
-                state, dt_use, dt_next, ok = cycle_fn(
-                    state, dt_prev, np.int32(cycles),
-                    T(resume_lm) if resume_lm is not None else T(np.nan))
-                resume_lm = None
-            else:
-                state, dt_use, dt_next, ok = cycle_fn(state, dt_prev,
-                                                      np.int32(cycles))
+        if checkpoint is None:
+            state, dt_use, dt_next, ok = cycle_fn(state, dt_prev,
+                                                  np.int32(cycles))
         else:
             state, dt_use, dt_next, ok, stop = _checkpointed_cycle(
-                params, step_fns, state, dt_prev, cycles, checkpoint,
-                lm_override=resume_lm)
-            resume_lm = None
+                params, step_fns, state, dt_prev, cycles, checkpoint)
             if stop:
                 return state, float(t), cycles, float(dt_next)
         if not bool(ok):
@@ -515,8 +275,7 @@ def _python_cycle_driver(params, state, checkpoint=None, solver_log=None,
             save_checkpoint(
                 os.path.join(params.output_dir,
                              params.output_file + ".ckpt.npz"),
-                params, state, float(t), cycles, float(dt_prev),
-                local_min=None if local_min is None else float(local_min))
+                params, state, float(t), cycles, float(dt_prev))
 
         if params.silent <= 1:
             m, e = conservation(state)
@@ -544,11 +303,6 @@ def _python_cycle_driver(params, state, checkpoint=None, solver_log=None,
                 write_state_file(cfg, gather_state(params, state), path,
                                  precision=params.output_precision)
 
-    if fused and local_min is not None:
-        # Keep the run's CFL carry available for tier-neutral checkpoint
-        # saves after the run (io/restart._scalars) — the jit driver's
-        # `params._final_local_min` analog.
-        params._final_local_min = float(np.asarray(local_min))
     return state, float(t), cycles, float(dt_prev)
 
 
@@ -571,9 +325,6 @@ def _make_step_fns(params):
             fns[("remap", axis)] = jax.jit(
                 lambda s, dt, a=axis: projection_remap(cfg, s, a, dt))
         fns["dt"] = jax.jit(lambda s, dtp, cyc: next_time_step(cfg, s, dtp, cyc))
-        fns["dt_resume"] = jax.jit(
-            lambda s, dtp, cyc, lm: dt_update(cfg, lm, dtp, cyc,
-                                              reduce=False))
         return fns
 
     _, sspec, rep = _mesh_and_specs(params)
@@ -596,27 +347,15 @@ def _make_step_fns(params):
     fns["dt"] = _shard(params,
                        lambda s, dtp, cyc: next_time_step(cfg, s, dtp, cyc),
                        in_specs=(sspec, rep, rep), out_specs=(rep, rep, rep))
-    fns["dt_resume"] = _shard(
-        params,
-        lambda s, dtp, cyc, lm: dt_update(cfg, lm, dtp, cyc, reduce=False),
-        in_specs=(sspec, rep, rep, rep), out_specs=(rep, rep, rep))
     return fns
 
 
-def _checkpointed_cycle(params, fns, state, dt_prev, cycle_idx, checkpoint,
-                        lm_override=None):
+def _checkpointed_cycle(params, fns, state, dt_prev, cycle_idx, checkpoint):
     """`solver_cycle` with a checkpoint after every sub-step
-    (`src/solver.jl:288-320`). `lm_override`: saved CFL carry replacing
-    the state reduction on the first cycle resumed from a fused-tier
-    checkpoint (stale `state.c` — see `step.solver_cycle`)."""
+    (`src/solver.jl:288-320`)."""
     cfg = params.config
     T = cfg.dtype.type
-    if lm_override is not None:
-        dt_use, dt_next, ok = fns["dt_resume"](state, dt_prev,
-                                               np.int32(cycle_idx),
-                                               T(lm_override))
-    else:
-        dt_use, dt_next, ok = fns["dt"](state, dt_prev, np.int32(cycle_idx))
+    dt_use, dt_next, ok = fns["dt"](state, dt_prev, np.int32(cycle_idx))
     even, odd = split_schedules(cfg.splitting)
     # time_step files are tagged X at cycle 0, else with the PREVIOUS
     # cycle's last sweep axis — the reference's `state.axis` at that point
@@ -656,80 +395,42 @@ def _checkpointed_cycle(params, fns, state, dt_prev, cycle_idx, checkpoint,
 
 
 def measure_sections(params, state, reps=3):
-    """Per-SECTION wall times of one solver cycle — the TPU-meaningful
-    analog of the reference's block-log event analysis
-    (`src/logging.jl:75-300`: per-event step counts, stall/wait shares).
-    Under XLA there is no host scheduler to instrument, so the operational
-    decomposition is the jitted cycle's pieces, timed as separately-jitted
-    steps over the CURRENT state (same traced ops as the production cycle;
-    the fused whole-cycle kernel overlaps some of these, so shares are
-    indicative, not additive to the fused cycle time).
+    """Per-SECTION wall times of one solver cycle — the analog of the
+    reference's block-log event analysis (`src/logging.jl:75-300`:
+    per-event step counts, stall/wait shares). Under XLA there is no host
+    scheduler to instrument, so the operational decomposition is the
+    jitted cycle's pieces, timed as separately-jitted steps over the
+    CURRENT state (same traced ops as the production cycle; XLA fuses
+    across sub-steps inside the whole-run program, so shares are
+    indicative, not additive to the in-loop cycle time).
 
-    Returns {section: seconds}: ghost_exchange_X/Y, sweep_X/Y (fused tier)
-    or eos/bc/fluxes/update/remap per axis (jnp tier), plus time_step."""
-    import time as _time
+    Returns {section: seconds}: eos/bc/fluxes/update/remap per axis, plus
+    time_step."""
     cfg = params.config
     T = cfg.dtype.type
-    from .step import use_fused_tier, ghost_exchange, FUSED_EXCHANGE_VARS
-
-    def sync(out):
-        leaf = out[0] if isinstance(out, tuple) else out
-        if isinstance(leaf, State):
-            leaf = leaf.rho
-        return float(np.asarray(jax.device_get(leaf)).ravel()[0])
 
     def timeit(fn, *args):
-        out = fn(*args)
-        sync(out)
+        jax.block_until_ready(fn(*args))
         best = float("inf")
         for _ in range(reps):
-            t0 = _time.perf_counter()
-            out = fn(*args)
-            sync(out)
-            best = min(best, _time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            jax.block_until_ready(fn(*args))
+            best = min(best, time.perf_counter() - t0)
         return best
 
-    dt = T(getattr(params, "_probe_dt", 1e-6))
+    dt = T(1e-6)
     sections = {}
-    if use_fused_tier(cfg):
-        from .step import fused_sweep_step
-
-        def build(f, n_in):
-            if not cfg.spmd:
-                return jax.jit(f)
-            _, sspec, rep = _mesh_and_specs(params)
-            specs = (sspec,) + (rep,) * (n_in - 1)
-            return _shard(params, f, in_specs=specs,
-                          out_specs=(sspec, rep))
-
-        def sweep_probe(s, d, a):
-            out, lm = fused_sweep_step(cfg, s, a, d)[:2]
-            if cfg.spmd:
-                # The per-shard minimum must be reduced before the
-                # replicated out_spec claims it is mesh-uniform.
-                from jax import lax
-                from ..ops.reductions import pmin_dt
-                lm = pmin_dt(lm, cfg.axis_names)
-            return out, lm
-
-        for axis in (Axis.X, Axis.Y):
-            ex = build(lambda s, a=axis: (ghost_exchange(
-                cfg, s, a, FUSED_EXCHANGE_VARS), jnp.zeros(())), 1)
-            sections[f"ghost_exchange_{axis.name}"] = timeit(ex, state)
-            sw = build(lambda s, d, a=axis: sweep_probe(s, d, a), 2)
-            sections[f"sweep_{axis.name}"] = timeit(sw, state, dt)
-    else:
-        fns = _make_step_fns(params)
-        for axis in (Axis.X, Axis.Y):
-            sections[f"eos_{axis.name}"] = timeit(fns[("eos", axis)], state)
-            sections[f"bc_{axis.name}"] = timeit(fns[("bc", axis)], state)
-            sections[f"fluxes_{axis.name}"] = timeit(fns[("fluxes", axis)],
-                                                     state, dt)
-            sections[f"update_{axis.name}"] = timeit(fns[("update", axis)],
-                                                     state, dt)
-            sections[f"remap_{axis.name}"] = timeit(fns[("remap", axis)],
-                                                    state, dt)
-        sections["time_step"] = timeit(fns["dt"], state, T(1e-6), np.int32(2))
+    fns = _make_step_fns(params)
+    for axis in (Axis.X, Axis.Y):
+        sections[f"eos_{axis.name}"] = timeit(fns[("eos", axis)], state)
+        sections[f"bc_{axis.name}"] = timeit(fns[("bc", axis)], state)
+        sections[f"fluxes_{axis.name}"] = timeit(fns[("fluxes", axis)],
+                                                 state, dt)
+        sections[f"update_{axis.name}"] = timeit(fns[("update", axis)],
+                                                 state, dt)
+        sections[f"remap_{axis.name}"] = timeit(fns[("remap", axis)],
+                                                state, dt)
+    sections["time_step"] = timeit(fns["dt"], state, T(1e-6), np.int32(2))
     return sections
 
 
@@ -832,15 +533,6 @@ def armon(params: ArmonParameters, checkpoint=None,
     the run resumes bit-exactly from the saved carry."""
     cfg = params.config
     _ensure_x64(cfg)
-    # This run's fused CFL carry, recorded at the end for tier-neutral
-    # checkpoint saves (io/restart._scalars). Reset so a save after THIS
-    # run can never pick up a previous run's carry on a reused params.
-    params._final_local_min = None
-    # Provenance of the state this run produces: True = the fused drivers
-    # ran (state.c is cycle-0 stale, a save NEEDS the carry), False = a
-    # non-fused driver ran (state.c reseeds the dt bit-exactly), None =
-    # unknown (save_checkpoint refuses carry-less saves, io/restart.py).
-    params._ran_fused = None
 
     if params.silent < 3:
         print(params.describe())
@@ -854,115 +546,46 @@ def armon(params: ArmonParameters, checkpoint=None,
     use_python_loop = (params.silent <= 1 or params.animation_step != 0
                        or params.compare or checkpoint is not None
                        or solver_log is not None or params.checkpoint_step != 0)
-    # Lean fused driver (the capacity-limit memory diet, VERDICT r4 #2):
-    # fresh jit-driver fused runs carry only the 5 live fields; the full
-    # State exists transiently inside the init/rehydrate programs only.
-    from .step import use_fused_tier
-    lean = not use_python_loop and use_fused_tier(cfg)
 
-    t_start = time.perf_counter()
     restored = None
     state = None
-    fs = local0 = None
-    with section("init", timer, sync_args=lambda: fs if lean else state,
+    with section("init", timer, sync_args=lambda: state,
                  time_async=params.time_async):
         if restore_from is not None:
             from ..io.restart import load_checkpoint
-            state, r_t, r_cycles, r_dt, r_lm = load_checkpoint(
-                restore_from, params)
+            state, r_t, r_cycles, r_dt = load_checkpoint(restore_from, params)
             restored = (cfg.dtype.type(r_t), np.int32(r_cycles),
-                        cfg.dtype.type(r_dt),
-                        None if r_lm is None else cfg.dtype.type(r_lm))
-            # Resume through the SAME lean fused driver a fresh run uses —
-            # fresh-vs-resumed bit-exactness requires the same compiled
-            # program (the multicycle and per-cycle programs contract FMAs
-            # differently on the CPU backend, ~1 ulp by cycle 20). Needs
-            # the saved CFL carry; under temporal blocking the resume
-            # cycle must also be EVEN so the K-launch even/odd schedule
-            # mapping matches a from-cycle-0 run. Otherwise fall back to
-            # the full-state restore loop.
-            from .step import FusedCarry, temporal_pairs
-            lean = (lean and r_lm is not None
-                    and (temporal_pairs(cfg) is None
-                         or int(r_cycles) % 2 == 0))
-            if lean:
-                fs = FusedCarry(state.rho, state.u, state.v, state.E,
-                                state.p)
-                local0 = cfg.dtype.type(r_lm)
-                state = None
-        elif lean:
-            fs, local0 = jax.block_until_ready(make_init_fused(params)())
+                        cfg.dtype.type(r_dt))
         else:
-            init_fn = make_init(params)
-            state = jax.block_until_ready(init_fn())
+            state = jax.block_until_ready(make_init(params)())
 
     if params.check_result or params.silent <= 1:
         with section("conservation_vars", timer):
-            if lean:
-                m, e = make_conservation_lean(params)(fs)
-            else:
-                m, e = make_conservation(params)(state)
+            m, e = make_conservation(params)(state)
             params.initial_mass, params.initial_energy = float(m), float(e)
 
     solve_start = time.perf_counter()
     if params.compare and checkpoint is None:
         checkpoint = make_file_checkpoint(params)
 
-    profile_ctx = trace(os.path.join(params.output_dir, "profile")) \
-        if "trace" in tuple(params.profiling) else _null_ctx()
+    tracing = "trace" in tuple(params.profiling)
+    profile_dir = os.path.join(params.output_dir, "profile")
+    profile_ctx = trace(profile_dir) if tracing else contextlib.nullcontext()
     with profile_ctx, section("solver_cycle", timer):
         if use_python_loop:
             state, final_t, cycles, last_dt = _python_cycle_driver(
                 params, state, checkpoint=checkpoint, solver_log=solver_log,
                 restored=restored)
-        elif lean:
-            T = cfg.dtype.type
-            loop = make_jit_loop_lean(params)
-            if restored is not None:
-                r_t, r_c, r_dt, _ = restored
-                fs, t, cycles, last_dt, final_lm, ok = loop(
-                    fs, r_t, r_c, r_dt, local0)
-            else:
-                fs, t, cycles, last_dt, final_lm, ok = loop(
-                    fs, T(0.0), np.int32(0), T(0.0), local0)
-            params._final_local_min = float(np.asarray(final_lm))
-            params._ran_fused = True
-            final_t, cycles, last_dt = float(t), int(cycles), float(last_dt)
-            if not bool(ok):
-                solver_error("time", f"Invalid time step at cycle {cycles}")
         else:
             loop = make_jit_loop(params, restore=restored is not None)
-            if restored is not None:
-                r_t, r_c, r_dt, r_lm = restored
-                lm0 = cfg.dtype.type(np.nan if r_lm is None else r_lm)
-                state, t, cycles, last_dt, final_lm, ok = loop(
-                    state, r_t, r_c, r_dt, lm0)
-            else:
-                state, t, cycles, last_dt, final_lm, ok = loop(state)
-            params._final_local_min = float(np.asarray(final_lm))
-            params._ran_fused = use_fused_tier(cfg)
-            # On some PJRT backends block_until_ready does not synchronize;
-            # a host read does.
+            args = restored if restored is not None else ()
+            state, t, cycles, last_dt, ok = loop(state, *args)
+            # The host reads wait for the whole-run program to finish.
             final_t, cycles, last_dt = float(t), int(cycles), float(last_dt)
             if not bool(ok):
                 solver_error("time", f"Invalid time step at cycle {cycles}")
 
     solve_time = time.perf_counter() - solve_start
-
-    if lean:
-        # Rebuild the full State only when something downstream reads it;
-        # a measurement run (no outputs, no checks) never materializes the
-        # 11-field state at all. The final conservation check alone does
-        # NOT force a rehydrate: it reads only rho/E, which the lean carry
-        # already holds (`make_conservation_lean`, bit-identical sums) —
-        # at the 16384² capacity limit the 11-field rebuild (~11.8 GB on
-        # top of the ~5.4 GB carry) would OOM the 16 GB chip just to sum
-        # two of its fields.
-        need_state = (params.return_data or params.write_output
-                      or params.write_slices)
-        if need_state:
-            state = jax.block_until_ready(make_rehydrate(params)(fs))
-            fs = None
 
     if solver_log is not None and cycles > 0:
         # Per-section breakdown of the cycle (the `analyse_log_stats`
@@ -972,25 +595,17 @@ def armon(params: ArmonParameters, checkpoint=None,
         except Exception as e:  # a probe failure must not kill the run
             import warnings
             warnings.warn(f"section probe failed: {type(e).__name__}: {e}")
-        if "trace" in tuple(params.profiling):
+        if tracing:
             # In-loop per-kernel DEVICE truth from the XPlane dump the run
             # just produced — the reference's per-kernel profiling
             # callbacks (src/profiling.jl:6-68). The re-jitted probes
             # above stay available, labeled as probes, in analyse().
-            try:
-                from ..utils.xplane import parse_kernel_times
-                solver_log.trace_sections = parse_kernel_times(
-                    os.path.join(params.output_dir, "profile")) or {}
-            except Exception as e:
-                import warnings
-                warnings.warn(f"xplane parse failed: {type(e).__name__}: {e}")
+            from ..utils.xplane import parse_kernel_times
+            solver_log.trace_sections = parse_kernel_times(profile_dir)
 
     # Final conservation check (src/solver.jl:467-490)
     if params.check_result and params.test.is_conservative and cycles > 0:
-        if state is not None:
-            m, e = make_conservation(params)(state)
-        else:  # lean run with no other state consumer: sum over the carry
-            m, e = make_conservation_lean(params)(fs)
+        m, e = make_conservation(params)(state)
         dm = abs(float(m) - params.initial_mass) / params.initial_mass
         de = abs(float(e) - params.initial_energy) / params.initial_energy
         rtol = 1e-2 * min(1.0, final_t / params.test.default_max_time)
@@ -1166,14 +781,6 @@ def _print_summary(stats, params):
     print(f"Last cycle:  {stats.final_time:.18f} sec, dt={stats.last_dt:.18f} sec")
 
 
-import contextlib
-
-
-@contextlib.contextmanager
-def _null_ctx():
-    yield
-
-
 def _ensure_x64(cfg):
     if cfg.dtype.itemsize == 8 and not jax.config.read("jax_enable_x64"):
         jax.config.update("jax_enable_x64", True)
@@ -1193,8 +800,7 @@ def host_to_device(params, state_host: State) -> State:
 
     from jax.sharding import NamedSharding
     from ..parallel.mesh import make_mesh, shard_state_spec
-    mesh = make_mesh(cfg.proc_dims, cfg.axis_names, devices=params.devices,
-                     reorder=params.reorder_grid)
+    mesh = make_mesh(cfg.proc_dims, cfg.axis_names, devices=params.devices)
     sharding = NamedSharding(mesh, shard_state_spec(cfg.axis_names))
     lr, lc = cfg.local_shape
     px, py = cfg.proc_dims

@@ -1,14 +1,14 @@
 """Solver state: a pytree of 2D field arrays.
 
 The reference stores 16 SoA variables per block (`src/blocking/blocks.jl:18-47`:
-x, y, rho, u, v, E, p, c, g, ustar, pstar, work_1..4, mask). On TPU the four
-work arrays (advection fluxes) are transient values inside the fused sweep and
-never materialized, and the ghost mask is a static slice, so the state is the
+x, y, rho, u, v, E, p, c, g, ustar, pstar, work_1..4, mask). Here the four
+work arrays (advection fluxes) are transient values inside the sweep, which
+XLA fuses without materializing them, and the ghost mask is a static slice, so the state is the
 11 physical fields only.
 
 All fields have shape ``(ny + 2*nghost, nx + 2*nghost)`` — the full padded
 (sub-)domain, ghost cells included. Indexing is ``[j, i]`` with X contiguous
-(TPU lane dimension).
+in memory.
 
 Variable subsets (`src/blocking/blocks.jl:48-50`):
 - ``MAIN_VARS``:  synced host<->device / compared in tests

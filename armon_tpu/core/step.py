@@ -1,8 +1,8 @@
 """The solver schedule: sweep, cycle, jitted time loop.
 
-This is the TPU-native driver core replacing `src/solver.jl:288-403`. The
-reference's per-block async state machine (`src/solver.jl:58-179`) exists to
-keep x86 cores busy and caches warm; under XLA one jitted cycle in a
+This is the driver core replacing `src/solver.jl:288-403`. The reference's
+per-block async state machine (`src/solver.jl:58-179`) exists to keep x86
+cores busy and caches warm; under XLA one jitted cycle in a
 `lax.while_loop` gives the same overlap (kernel fusion, async collectives)
 with a statically compiled schedule (SURVEY.md §3.3 note).
 
@@ -10,11 +10,8 @@ Numerical schedule per sweep (`src/solver.jl:300-317`):
     EOS -> ghost exchange -> Riemann fluxes -> cell update -> remap
 """
 
-import os
-
 import numpy as np
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -25,19 +22,7 @@ from ..ops.riemann import numerical_fluxes
 from ..ops.update import cell_update
 from ..ops.projection import projection_remap
 from .splitting import split_schedules
-from .timestep import next_time_step, dt_update
-
-
-# A/B knob for the fused-kernel math variants (jit static arg — see
-# CLAUDE.md on why monkeypatching is invisible to the trace cache).
-# Read once at import: per-process selection for interleaved bench A/Bs.
-_SWEEP_VARIANT = os.environ.get("ARMON_SWEEP_VARIANT", "")
-# Measurement knob: drop the p-stream emission from the per-sweep fused
-# path (final state's p is then WRONG — timing probes only; the pair
-# path is unaffected). Quantified the p store's critical-path cost as
-# ~zero — the emit-p-on-last-cycle loop restructure it scouted was
-# rejected (BENCH_NOTES round 4).
-_NO_EMIT_P = os.environ.get("ARMON_NO_EMIT_P", "") not in ("", "0")
+from .timestep import next_time_step
 
 
 def ghost_exchange(cfg, state, axis: Axis, vars=None):
@@ -67,24 +52,9 @@ def run_schedule(cfg, state, schedule, dt):
     return state
 
 
-def solver_cycle(cfg, state, dt_prev, cycle, lm_override=None):
-    """One full cycle (jnp tier). Returns (state, dt_used, dt_next_carry, ok).
-
-    `lm_override` (traced scalar or None): an already-reduced CFL minimum
-    to use in place of the state reduction when non-NaN. Purpose: the
-    first cycle resumed from a FUSED-tier checkpoint, whose `state.c` is
-    stale (the fused kernels never write c back — the saved carry holds
-    the correct minimum instead). NaN = no override; from the second
-    resumed cycle on, c has been refreshed by the sweeps' EOS calls and
-    the normal reduction is exact again."""
+def solver_cycle(cfg, state, dt_prev, cycle):
+    """One full cycle. Returns (state, dt_used, dt_next_carry, ok)."""
     dt_use, dt_next, ok = next_time_step(cfg, state, dt_prev, cycle)
-    if lm_override is not None:
-        o_use, o_next, o_ok = dt_update(cfg, lm_override, dt_prev, cycle,
-                                        reduce=False)
-        use = ~jnp.isnan(lm_override)
-        dt_use = jnp.where(use, o_use, dt_use)
-        dt_next = jnp.where(use, o_next, dt_next)
-        ok = jnp.where(use, o_ok, ok)
     even, odd = split_schedules(cfg.splitting)
     if even == odd:
         state = run_schedule(cfg, state, even, dt_use)
@@ -98,501 +68,38 @@ def solver_cycle(cfg, state, dt_prev, cycle, lm_override=None):
     return state, dt_use, dt_next, ok
 
 
-# ------------------------------------------------------- fused (Pallas) tier
-
-FUSED_EXCHANGE_VARS = ("rho", "u", "v", "E")
-
-
-from typing import NamedTuple
-
-
-class FusedCarry(NamedTuple):
-    """The live fields of the fused-tier loop (x, y, c, g, ustar, pstar are
-    untouched by the fused cycle and stay outside the carry)."""
-    rho: jax.Array
-    u: jax.Array
-    v: jax.Array
-    E: jax.Array
-    p: jax.Array
-
-
-def _pallas_interpret(cfg) -> bool:
-    return jax.default_backend() != "tpu"
-
-
-def use_fused_tier(cfg) -> bool:
-    """Whether the fused Pallas path applies.
-
-    - 'pallas': always, except f64-on-TPU (Mosaic rejects 64-bit kernel
-      types) which falls back to the jnp tier; interpret mode on CPU
-      supports f64 and keeps the fused path testable.
-    - 'auto' (the default): compiled Mosaic when it is the fast path
-      (f32 on a real TPU); the jnp tier otherwise — interpreted Pallas on
-      CPU is only for testing, and emulated-f64 runs are jnp either way.
-    - degenerate grids shorter than one 8-row sublane block
-      (ny + 2*nghost < 8) fall back to the jnp tier: the Y-sweep halo
-      machinery works in fixed 8-row strips (`_halo_strips`,
-      `ops/pallas/sweep.py`), which cannot be cut from a shorter array
-      (found by the tiny-grid fuzz, tests/test_option_fuzz.py).
-    """
-    if cfg.n_local[1] + 2 * cfg.nghost < 8:
-        return False
-    if cfg.kernel_tier == "auto":
-        return not _pallas_interpret(cfg) and np.dtype(cfg.dtype).itemsize == 4
-    if cfg.kernel_tier != "pallas":
-        return False
-    return _pallas_interpret(cfg) or np.dtype(cfg.dtype).itemsize == 4
-
-
-def _shard_n_real(cfg):
-    """Traced (nx, ny) real extent of this shard for the kernels' CFL mask;
-    None when every shard is full (even split or single device)."""
-    if cfg.spmd and (cfg.uneven(Axis.X) or cfg.uneven(Axis.Y)):
-        from ..ops.reductions import shard_real_extents
-        nx, ny = shard_real_extents(cfg)
-        return jnp.stack([jnp.asarray(nx, jnp.int32),
-                          jnp.asarray(ny, jnp.int32)])
-    return None
-
-
-def fused_sweep_step(cfg, state, axis: Axis, dt, last=True,
-                     emit_strips=False, strips=None):
-    """One sweep through the fused Pallas kernel. Only (rho,u,v,E) ghosts are
-    exchanged — p/c ghosts are recomputed in-kernel by the EOS (which
-    commutes bitwise with the mirror/halo copy). Returns
-    (state, local_min, strips_out) where local_min is this shard's CFL
-    minimum of the post-sweep state.
-    `last=False` (not the cycle's final sweep) skips the p stream and the
-    CFL reduction — neither is observable mid-cycle.
-    Sweeps along a FLAT mesh axis (single device, or proc_dims[ax] == 1 —
-    every shard is a global border there) inline the mirror ghost fill
-    in-kernel — Y via the halo-concat row splice, X via the lane mirror
-    (`_bc_x_apply`) — bitwise identical, saving the 8 slab-write launches
-    per sweep; an X sweep with `emit_strips` additionally emits the
-    following Y sweep's halo side strips (consumed via `strips`),
-    skipping the XLA strip assembly.
-    A sweep along a SHARDED even-split axis consumes its exchanged ghost
-    slabs in-kernel instead (`halo_slabs` + the kernel's `_halo_cat_slab`
-    row splice / `_bc_x_apply_slab` lane splice): the ppermute still
-    moves the O(boundary) slabs, but the 2*nvars dynamic-update-slice
-    write-back launches disappear."""
-    from ..ops.pallas.sweep import (fused_sweep_ip, inline_bc_y_ok,
-                                    inline_bc_x_ok, slab_bc_y_ok,
-                                    slab_bc_x_ok)
-    slab = None
-    if axis is Axis.Y:
-        inline = inline_bc_y_ok(cfg, state.rho.shape)
-        use_slab = not inline and slab_bc_y_ok(cfg, state.rho.shape)
-    else:
-        inline = inline_bc_x_ok(cfg)
-        use_slab = not inline and slab_bc_x_ok(cfg)
-    if use_slab:
-        from ..parallel.halo import halo_slabs
-        slab = halo_slabs(cfg, state, axis, FUSED_EXCHANGE_VARS)
-    if not inline and slab is None:
-        state = ghost_exchange(cfg, state, axis, FUSED_EXCHANGE_VARS)
-    out = fused_sweep_ip(
-        cfg, axis, state.rho, state.u, state.v, state.E, dt,
-        n_real=_shard_n_real(cfg), emit_p=last and not _NO_EMIT_P,
-        emit_dt=last,
-        interpret=_pallas_interpret(cfg), inline_bc=inline,
-        variant=_SWEEP_VARIANT, emit_strips=emit_strips, strips=strips,
-        slab=slab)
-    if emit_strips:
-        rho, u, v, E, p_stale, local_min, strips_out = out
-    else:
-        rho, u, v, E, p_stale, local_min = out
-        strips_out = None
-    if p_stale is None:
-        return state._replace(rho=rho, u=u, v=v, E=E), local_min, strips_out
-    return (state._replace(rho=rho, u=u, v=v, E=E, p=p_stale), local_min,
-            strips_out)
-
-
-def fused_cycle_step(cfg, state, pair, dt, cycle_strips=None):
-    """Two consecutive sweeps covering both axes in ONE kernel pass — the
-    small-grid path (`ops/pallas/sweep.py:fused_cycle`), on meshes and
-    single devices alike. Both ghost bands are pre-filled from the
-    pre-pair state: valid because a sweep commutes bitwise with the
-    orthogonal ghost fill (see the kernel docstring).
-    `cycle_strips`: the halo side strips emitted by the PREVIOUS cycle's
-    kernel (loop-carried, see `cycle_strips_on`); when given, the kernel
-    consumes them instead of the XLA `_halo_strips` assembly and emits
-    this cycle's own — the return gains the strips_out tuple."""
-    from ..ops.pallas.sweep import (fused_cycle, inline_bc_cycle_ok,
-                                    inline_bc_x_ok, slab_bc_cycle_ok)
-    T = np.dtype(cfg.dtype).type
-    inline_x = inline_bc_x_ok(cfg)
-    if not inline_x:
-        state = ghost_exchange(cfg, state, Axis.X, FUSED_EXCHANGE_VARS)
-    inline = inline_bc_cycle_ok(cfg, state.rho.shape)
-    slab = None
-    if not inline and slab_bc_cycle_ok(cfg, state.rho.shape):
-        # Sharded-Y even split: the kernel splices the exchanged slabs
-        # (computed AFTER the X fill branch, matching the XLA fill order).
-        from ..parallel.halo import halo_slabs
-        slab = halo_slabs(cfg, state, Axis.Y, FUSED_EXCHANGE_VARS)
-    elif not inline:
-        state = ghost_exchange(cfg, state, Axis.Y, FUSED_EXCHANGE_VARS)
-    (ax0, f0), (ax1, f1) = pair
-    x_first = ax0 is Axis.X
-    fx = f0 if x_first else f1
-    fy = f1 if x_first else f0
-    out = fused_cycle(
-        cfg, x_first, state.rho, state.u, state.v, state.E,
-        dt * T(fx), dt * T(fy), n_real=_shard_n_real(cfg),
-        in_place=True, interpret=_pallas_interpret(cfg), inline_bc=inline,
-        inline_bc_x=inline_x, emit_strips=cycle_strips is not None,
-        strips=cycle_strips, variant=_SWEEP_VARIANT, slab=slab)
-    rho, u, v, E, p_stale, local_min = out[:6]
-    strips_out = out[6] if cycle_strips is not None else None
-    return (state._replace(rho=rho, u=u, v=v, E=E, p=p_stale), local_min,
-            strips_out)
-
-
-def pair_routing_on(cfg) -> bool:
-    """Whether the whole-cycle pair kernel routes this config: the
-    `pair_threshold` crossover on the LOCAL extent AND the mesh not
-    sharded along X. On a sharded-X mesh the pair kernel cannot splice
-    the X-exchanged ghost lanes in-kernel (its carried strip halo rows
-    would need per-chunk slab strips — 12 more operands), so it keeps 8
-    full-array dynamic-update-slice write-backs per cycle where the
-    per-sweep routing runs ZERO fill thunks (`slab_bc_x_ok` splice).
-    Measured single-chip pricing (BENCH_NOTES round 4): the fill thunks
-    cost ~25% of cycle time at 1000² — the scale where pair routing
-    engages — vs the pair kernel's 4-5% launch saving, so per-sweep
-    strictly dominates there; routing is gated accordingly (VERDICT r4
-    #5) and the zero-DUS program shape is pinned for BOTH routings on
-    even meshes (tests/test_mesh.py::test_fused_mesh_slab_fills).
-    Reference analog: the one-kernel bidirectional exchange
-    `src/halo_exchange.jl:39-115`."""
-    if not (cfg.pair_threshold > 0
-            and max(cfg.n_local) <= cfg.pair_threshold):
-        return False
-    return not (cfg.spmd and cfg.proc_dims[0] > 1)
-
-
-def cycle_strips_on(cfg) -> bool:
-    """Whether the pair-kernel path loop-carries its halo side strips
-    (emitted by each cycle's kernel for the next — no XLA `_halo_strips`
-    assembly between cycles). Needs: a strip-admissible mesh/tile plan
-    (`cycle_strip_plan` — flat-X mesh with the in-kernel X fill live,
-    even-or-flat Y), the pair routing active at this size, and EXACTLY
-    one X/Y pair per cycle in both schedules (a trailing odd sweep, e.g.
-    Strang's, would advance the state after the emission and stale the
-    strips)."""
-    from ..ops.pallas.sweep import cycle_strip_plan
-    if not pair_routing_on(cfg):
-        return False
-    even, odd = split_schedules(cfg.splitting)
-    for sched in (even, odd):
-        if len(sched) != 2 or {sched[0][0], sched[1][0]} != {Axis.X, Axis.Y}:
-            return False
-    return cycle_strip_plan(cfg, cfg.local_shape) is not None
-
-
-def seed_cycle_strips(cfg, state):
-    """The loop-carry seed: the XLA strip assembly of the INITIAL state
-    (bitwise what the first cycle's `_halo_strips` call would build)."""
-    from ..ops.pallas.sweep import _halo_strips, cycle_strip_plan
-    chunk, _ = cycle_strip_plan(cfg, cfg.local_shape)
-    rows = cfg.local_shape[0]
-    above, below = [], []
-    for var in FUSED_EXCHANGE_VARS:
-        a, b = _halo_strips(getattr(state, var), chunk, rows)
-        above.append(a)
-        below.append(b)
-    return (tuple(above), tuple(below))
-
-
-def run_schedule_fused(cfg, state, schedule, dt, cycle_strips=None):
-    from ..ops.pallas.sweep import strip_emission_plan
-    T = np.dtype(cfg.dtype).type
-    local_min = None
-    i = 0
-    # Small local grids run the whole-cycle pair kernel (one launch per
-    # cycle beats two when launch overhead dominates: +4-5% measured at
-    # 1000²-2000² on the dev v5e-lite); large ones run the per-sweep
-    # IN-PLACE kernels — the pair kernel's full-width VMEM chunks shrink
-    # with array width until its halo-row recompute loses (-6% at 4000²,
-    # -28% at 8192², both measured; the sweeps are VPU/VMEM-bound at
-    # production widths, so the pair kernel's halved HBM traffic buys
-    # nothing — BENCH_NOTES round-3 "measured dead end"). The crossover
-    # `cfg.pair_threshold` (option / ARMON_PAIR_THRESHOLD) applies to
-    # max(n_local) — the LOCAL shard extent — on meshes too: the pair
-    # kernel saves no collective rounds (both paths exchange each ghost
-    # band once per cycle), so the same launch-vs-recompute tradeoff
-    # governs. <= 0 = per-sweep everywhere. Sharded-X meshes always route
-    # per-sweep (`pair_routing_on`: the pair kernel would keep the DUS
-    # X-exchange write-backs the per-sweep slab splice eliminated).
-    pair_cycles = pair_routing_on(cfg)
-    can_emit = (not pair_cycles
-                and strip_emission_plan(cfg, cfg.local_shape) is not None)
-    strips = None
-    while i < len(schedule):
-        if (pair_cycles and i + 1 < len(schedule)
-                and {schedule[i][0], schedule[i + 1][0]} == {Axis.X, Axis.Y}):
-            state, local_min, cycle_strips = fused_cycle_step(
-                cfg, state, (schedule[i], schedule[i + 1]), dt,
-                cycle_strips=cycle_strips)
-            i += 2
-        else:
-            axis, factor = schedule[i]
-            # An X sweep immediately followed by a Y sweep emits the Y
-            # sweep's halo strips from its own output rows.
-            emit = (can_emit and axis is Axis.X and i + 1 < len(schedule)
-                    and schedule[i + 1][0] is Axis.Y)
-            state, local_min, strips = fused_sweep_step(
-                cfg, state, axis, dt * T(factor),
-                last=(i == len(schedule) - 1),
-                emit_strips=emit, strips=strips)
-            i += 1
-    return state, local_min, cycle_strips
-
-
-def solver_cycle_fused(cfg, state, dt_prev, cycle, local_min,
-                       cycle_strips=None):
-    """One full cycle, fused tier. `local_min` is the CFL minimum emitted by
-    the previous cycle's last sweep (== the reference's asynchronous
-    next-cycle dt reduction, `src/reductions.jl:113-130`). `cycle_strips`
-    loop-carries the pair kernel's self-emitted halo strips (see
-    `cycle_strips_on`).
-    Returns (state, dt_use, dt_next, new_local_min, new_strips, ok)."""
-    dt_use, dt_next, ok = dt_update(cfg, local_min, dt_prev, cycle,
-                                    reduce=False)
-    even, odd = split_schedules(cfg.splitting)
-    if even == odd:
-        state, new_min, strips = run_schedule_fused(cfg, state, even, dt_use,
-                                                    cycle_strips)
-    else:
-        state, new_min, strips = lax.cond(
-            cycle % 2 == 0,
-            lambda s, cs: run_schedule_fused(cfg, s, even, dt_use, cs),
-            lambda s, cs: run_schedule_fused(cfg, s, odd, dt_use, cs),
-            state, cycle_strips,
-        )
-    if cfg.spmd:
-        # Reduce at production so the carry is replicated over the mesh
-        # (the reference's one-cycle-early Iallreduce, src/reductions.jl:117-125).
-        from ..ops.reductions import pmin_dt
-        new_min = pmin_dt(new_min, cfg.axis_names)
-    return state, dt_use, dt_next, new_min, strips, ok
-
-
-def temporal_pairs(cfg):
-    """Static per-cycle ((x_first, fx, fy), ...) schedule for the
-    K-cycles-per-launch kernel, or None when temporal blocking does not
-    apply (`multicycle_geom_ok` geometry; exactly one X/Y pair per cycle
-    in both schedules; K forced even when the schedules alternate so
-    launches stay even-cycle-aligned — the lean driver always starts at
-    cycle 0 and a launch advances 0..K cycles, stopping exactly at the
-    run's end, so alignment is preserved)."""
-    K = cfg.temporal_blocking
-    if K <= 1 or not use_fused_tier(cfg):
-        return None
-    from ..ops.pallas.sweep import multicycle_geom_ok
-    if not multicycle_geom_ok(cfg, cfg.local_shape):
-        return None
-    even, odd = split_schedules(cfg.splitting)
-    for sched in (even, odd):
-        if len(sched) != 2 or {sched[0][0], sched[1][0]} != {Axis.X, Axis.Y}:
-            return None
-    if even != odd:
-        K -= K % 2
-        if K < 2:
-            return None
-    pairs = []
-    for k in range(K):
-        (a0, f0), (a1, f1) = even if k % 2 == 0 else odd
-        xf = a0 is Axis.X
-        pairs.append((xf, f0 if xf else f1, f1 if xf else f0))
-    return tuple(pairs)
-
-
-def make_time_loop_lean(cfg):
-    """Fused-tier time loop over the 5-field `FusedCarry` ONLY — the
-    capacity-limit memory diet (VERDICT r4 #2): x/y/c/g/ustar/pstar never
-    enter the program, so a 16384² f32 run is ~10 resident field buffers
-    (~10.7 GB) instead of 16+ (OOM on the 16 GB chip). The cycle-0 EOS
-    init and the CFL seed run inside the INIT program
-    (`solver.make_init_fused`), which hands over (carry, local0); a
-    restored run passes its saved carry minimum and resumes through this
-    same loop when it can (saved CFL carry present, and an even resume
-    cycle under temporal blocking — `solver.armon`), else it falls back
-    to the full-state restore loop. Bit-identical to `make_time_loop`'s fused
-    branch: same `solver_cycle_fused` trace, same strip seeding.
-
-    Signature: (fs, t0, cycle0, dt0, local0)
-            -> (fs, t, cycles, dt_last, lm, ok)."""
-    T = np.dtype(cfg.dtype).type
-    maxtime = T(cfg.maxtime)
-    maxcycle = np.int32(cfg.maxcycle)
-    assert use_fused_tier(cfg)
-    pairs = temporal_pairs(cfg)
-    if pairs is not None:
-        # Temporal blocking: K cycles per kernel launch (launch-bound tiny
-        # grids — VERDICT r4 #6). The dt recurrence, ghost fills, CFL
-        # reduction and stop conditions all run in-kernel, bit-identical
-        # to the one-cycle path (`ops/pallas/sweep._multicycle_kernel`).
-        from ..ops.pallas.sweep import fused_multicycle
-        interp = _pallas_interpret(cfg)
-
-        def loop(fs, t0, cycle0, dt0, local0):
-            def cond(carry):
-                _, t, cyc, _, _, ok = carry
-                return (t < maxtime) & (cyc < maxcycle) & ok
-
-            def body(carry):
-                fs, t, cyc, dtp, lm, _ = carry
-                out = fused_multicycle(
-                    cfg, fs.rho, fs.u, fs.v, fs.E, fs.p, t, cyc, dtp, lm,
-                    pairs=pairs, interpret=interp, variant=_SWEEP_VARIANT)
-                fs = FusedCarry(*out[:5])
-                t, cyc, dtp, lm, ok = out[5:]
-                return (fs, t, cyc, dtp, lm, ok)
-
-            carry = (fs, t0, cycle0, dt0, local0, jnp.asarray(True))
-            fs, t, cycles, dt_last, lm, ok = lax.while_loop(cond, body,
-                                                            carry)
-            return fs, t, cycles, dt_last, lm, ok
-
-        return loop
-    strips_on = cycle_strips_on(cfg)
-
-    def loop(fs, t0, cycle0, dt0, local0):
-        def cond(carry):
-            _, _, t, cycle, _, _, ok = carry
-            return (t < maxtime) & (cycle < maxcycle) & ok
-
-        def body(carry):
-            fs, strips, t, cycle, dt_prev, local_min, _ = carry
-            fs, dt_use, dt_next, local_min, strips, ok = \
-                solver_cycle_fused(cfg, fs, dt_prev, cycle, local_min,
-                                   cycle_strips=strips)
-            return (fs, strips, t + dt_use, cycle + 1, dt_next,
-                    local_min, ok)
-
-        strips0 = seed_cycle_strips(cfg, fs) if strips_on else None
-        carry = (fs, strips0, t0, cycle0, dt0, local0, jnp.asarray(True))
-        fs, _, t, cycles, dt_last, lm, ok = lax.while_loop(cond, body, carry)
-        return fs, t, cycles, dt_last, lm, ok
-
-    return loop
-
-
 def make_time_loop(cfg, restore=False):
     """Build the fully-jitted time loop (`src/solver.jl:323-403` hot path):
-    (state, t0, cycle0, dt0, lm0) -> (state, t, cycles, last_dt, ok).
+    (state, t0, cycle0, dt0) -> (state, t, cycles, last_dt, ok).
 
     The returned function contains the whole run as a single XLA program:
     while (t < maxtime && cycle < maxcycle) { cycle(); }. With
-    `restore=True` the cycle-0 EOS init and CFL seeding are skipped — the
-    carry scalars come from a checkpoint and `state.c` already holds the
-    stale sound speed of the interrupted run.
+    `restore=True` the cycle-0 EOS init is skipped — the carry scalars come
+    from a checkpoint and `state.c` already holds the sound speed of the
+    interrupted run, which reseeds the time step exactly.
     """
     T = np.dtype(cfg.dtype).type
     maxtime = T(cfg.maxtime)
     maxcycle = np.int32(cfg.maxcycle)
 
-    fused = use_fused_tier(cfg)
+    def cond(carry):
+        _, t, cycle, _, ok = carry
+        return (t < maxtime) & (cycle < maxcycle) & ok
 
-    def loop(state, t0=None, cycle0=None, dt0=None, lm0=None):
+    def body(carry):
+        state, t, cycle, dt_prev, _ = carry
+        state, dt_use, dt_next, ok = solver_cycle(cfg, state, dt_prev, cycle)
+        # next_cycle!: cycle += 1; time += current_dt (src/solver_state.jl:145-147)
+        return (state, t + dt_use, cycle + 1, dt_next, ok)
+
+    def loop(state, t0=None, cycle0=None, dt0=None):
         t0 = T(0.0) if t0 is None else t0
         cycle0 = np.int32(0) if cycle0 is None else cycle0
         dt0 = T(0.0) if dt0 is None else dt0
-        if fused:
-            strips_on = cycle_strips_on(cfg)
-
-            def cond(carry):
-                _, _, t, cycle, _, _, ok = carry
-                return (t < maxtime) & (cycle < maxcycle) & ok
-
-            def body(carry):
-                fs, strips, t, cycle, dt_prev, local_min, _ = carry
-                fs, dt_use, dt_next, local_min, strips, ok = \
-                    solver_cycle_fused(cfg, fs, dt_prev, cycle, local_min,
-                                       cycle_strips=strips)
-                return (fs, strips, t + dt_use, cycle + 1, dt_next,
-                        local_min, ok)
-        elif restore:
-            # Restored-run variant: the carry threads an lm override that
-            # is live for the FIRST cycle only (non-NaN when the
-            # checkpoint came from the fused tier, whose saved state
-            # carries a stale c — see solver_cycle) and NaN afterwards.
-            def cond(carry):
-                _, t, cycle, _, _, ok = carry
-                return (t < maxtime) & (cycle < maxcycle) & ok
-
-            def body(carry):
-                state, t, cycle, dt_prev, lmo, _ = carry
-                state, dt_use, dt_next, ok = solver_cycle(
-                    cfg, state, dt_prev, cycle, lm_override=lmo)
-                return (state, t + dt_use, cycle + 1, dt_next,
-                        jnp.asarray(T(np.nan)), ok)
-        else:
-            def cond(carry):
-                _, t, cycle, _, ok = carry
-                return (t < maxtime) & (cycle < maxcycle) & ok
-
-            def body(carry):
-                state, t, cycle, dt_prev, _ = carry
-                state, dt_use, dt_next, ok = solver_cycle(cfg, state, dt_prev, cycle)
-                # next_cycle!: cycle += 1; time += current_dt (src/solver_state.jl:145-147)
-                return (state, t + dt_use, cycle + 1, dt_next, ok)
-
         if cfg.maxcycle > 0 and not restore:
             # Cycle-0 "EOS_init" (src/solver.jl:291-295), hoisted out of the loop.
             state = update_eos(cfg, state)
-
-        if fused:
-            from ..ops.reductions import dt_cfl_min
-            # Seed the carried CFL min from the current state's (stale) sound
-            # speed — equivalent to the jnp tier's cycle-start reduction.
-            if cfg.cst_dt:
-                local0 = jnp.asarray(T(np.finfo(cfg.dtype).max))
-            else:
-                seed = dt_cfl_min(cfg, state)
-                if cfg.spmd:
-                    from ..ops.reductions import pmin_dt
-                    seed = pmin_dt(seed, cfg.axis_names)
-                if lm0 is None:
-                    local0 = seed
-                else:
-                    # nan = "no saved carry" (checkpoint from the jnp tier)
-                    local0 = jnp.where(jnp.isnan(lm0), seed, lm0)
-            # Only the 5 live fields ride the loop carry — x, y, c, g,
-            # ustar, pstar are untouched by the fused cycle, and dropping
-            # them halves HBM pressure at capacity-limit grid sizes.
-            fs = FusedCarry(state.rho, state.u, state.v, state.E, state.p)
-            # Pair-path halo strips ride the carry (self-emitted each
-            # cycle); the seed is the XLA assembly of the initial state.
-            strips0 = seed_cycle_strips(cfg, state) if strips_on else None
-            carry = (fs, strips0, t0, cycle0, dt0, local0, jnp.asarray(True))
-            fs, _, t, cycles, dt_last, lm, ok = lax.while_loop(cond, body,
-                                                               carry)
-            state = state._replace(rho=fs.rho, u=fs.u, v=fs.v, E=fs.E, p=fs.p)
-        else:
-            if restore:
-                lm_in = jnp.asarray(T(np.nan)) if lm0 is None else lm0
-                carry = (state, t0, cycle0, dt0, lm_in, jnp.asarray(True))
-                state, t, cycles, dt_last, _, ok = lax.while_loop(cond, body,
-                                                                  carry)
-            else:
-                carry = (state, t0, cycle0, dt0, jnp.asarray(True))
-                state, t, cycles, dt_last, ok = lax.while_loop(cond, body,
-                                                               carry)
-            # The equivalent of the fused tier's carried CFL min: the jnp
-            # tier recomputes it from the (stale) sound speed at cycle start,
-            # which is exactly what the final state holds.
-            from ..ops.reductions import dt_cfl_min
-            lm = dt_cfl_min(cfg, state) if not cfg.cst_dt \
-                else jnp.asarray(T(np.finfo(cfg.dtype).max))
-            if cfg.spmd and not cfg.cst_dt:
-                # Reduce before the replication claim in the shard_map
-                # out_specs — and so a saved checkpoint carries the GLOBAL
-                # minimum (the fused tier treats it as already reduced).
-                from ..ops.reductions import pmin_dt
-                lm = pmin_dt(lm, cfg.axis_names)
-        return state, t, cycles, dt_last, lm, ok
+        carry = (state, t0, cycle0, dt0, jnp.asarray(True))
+        return lax.while_loop(cond, body, carry)
 
     return loop

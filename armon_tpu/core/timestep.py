@@ -16,14 +16,8 @@ Functional rebuild of the reference's `GlobalTimeStep` machinery
 On a device mesh the min-reduce is a `lax.pmin` over the mesh axes — the
 XLA-scheduled equivalent of the hand-rolled non-blocking `MPI_Iallreduce`
 (`src/utils.jl:126-143`); min is associative so the result is bit-identical.
-
-Two producers of the per-shard CFL minimum exist:
-- jnp tier: an explicit reduction over the state at cycle start
-  (`armon_tpu.ops.reductions.dt_cfl_min`);
-- pallas tier: the fused sweep kernel of the *previous* cycle's last sweep
-  emits it for free (same state, same stale sound speed — see
-  `armon_tpu.ops.pallas.sweep`).
-Both feed `dt_update` below and produce identical bits (min is exact).
+The per-shard CFL minimum is an explicit reduction over the state at cycle
+start (`armon_tpu.ops.reductions.dt_cfl_min`).
 """
 
 import jax.numpy as jnp
@@ -33,17 +27,15 @@ from jax import lax
 from ..ops.reductions import dt_cfl_min, pmin_dt
 
 
-def dt_update(cfg, local_min, dt_prev, cycle, reduce=True):
-    """Apply the reference dt recurrence to a CFL minimum. Set `reduce=False`
-    when `local_min` is already global (the fused tier reduces the carry when
-    it is produced, so it stays replicated across shards).
+def dt_update(cfg, local_min, dt_prev, cycle):
+    """Apply the reference dt recurrence to this shard's CFL minimum.
     Returns (dt_use, dt_next, ok)."""
     T = np.dtype(cfg.dtype).type
     if cfg.cst_dt:
         dt = jnp.asarray(T(cfg.Dt))
         return dt, dt, jnp.asarray(True)
 
-    if cfg.spmd and reduce:
+    if cfg.spmd:
         # Global min over the device mesh (replaces MPI_Iallreduce(MIN),
         # src/solver_state.jl:102-111)
         local_min = pmin_dt(local_min, cfg.axis_names)
@@ -53,10 +45,10 @@ def dt_update(cfg, local_min, dt_prev, cycle, reduce=True):
     # the reference computes `min(cfl*new_dt, 1.05*previous_dt)` with the
     # cap arm in Float64 (Julia literal promotion, src/solver_state.jl:129)
     # and one final conversion to T; here the cap arm rounds 1.05 and the
-    # product in T. Matching it would need f64 scalar math, which TPU f32
-    # runs don't enable (x64 off) — and an x64-conditional form would make
-    # CPU and TPU f32 runs disagree with EACH OTHER, a worse trade. The
-    # f32 golden gates pass with this form on both backends.
+    # product in T. Matching it would need f64 scalar math, which f32 runs
+    # don't enable (x64 off) — and an x64-conditional form would make two
+    # f32 runs disagree with EACH OTHER depending on the x64 flag, a worse
+    # trade. The f32 golden gates pass with this form.
     candidate = jnp.where(
         first,
         T(cfg.cfl) * local_min,
@@ -75,7 +67,7 @@ def dt_update(cfg, local_min, dt_prev, cycle, reduce=True):
 
 
 def next_time_step(cfg, state, dt_prev, cycle):
-    """jnp-tier entry: compute the CFL minimum from the current state
+    """Compute the CFL minimum from the current state
     (the start-of-cycle state, `src/reductions.jl:164-199`) then update."""
     if cfg.cst_dt:
         return dt_update(cfg, None, dt_prev, cycle)

@@ -2,13 +2,14 @@
 
 The reference has no restart capability — its "checkpoints" are per-sub-step
 comparison files (`src/io.jl:185-227`, covered by the compare mode here).
-SURVEY.md §5 calls for proper array dumps on TPU; this module provides them:
+SURVEY.md §5 calls for proper array dumps; this module provides them:
 exact binary state snapshots (npz) carrying the full solver carry
-(state, t, cycle, dt, CFL min) plus a config fingerprint, so a run can stop
-and resume bit-exactly.
+(state, t, cycle, dt) plus a config fingerprint, so a run can stop and
+resume bit-exactly. The saved sound speed `c` reseeds the next cycle's CFL
+time step exactly as the uninterrupted run computes it.
 
     save_checkpoint(path, params, state, t, cycles, dt_prev)
-    state, t, cycles, dt_prev, local_min = load_checkpoint(path, params)
+    state, t, cycles, dt_prev = load_checkpoint(path, params)
     armon(params, restore_from=path)
 
 Two layouts:
@@ -32,16 +33,6 @@ chip -> mesh, mesh -> different mesh) — elastic restarts the reference
 cannot express. Same-layout per-shard loads stay verbatim/O(shard); a
 layout CHANGE reassembles the global state from the shard files
 (O(global) host memory, `_reshard_load`) and re-decomposes it.
-
-Checkpoints are TIER-NEUTRAL: a snapshot saved from either kernel tier
-resumes in either tier. The subtlety is the sound speed — the fused
-kernels never write `c` back (it is recomputed in-kernel), so a
-fused-tier snapshot carries a stale `c` plus the CORRECT carried CFL
-minimum (`__local_min`); the jnp tier uses that carry for its first
-resumed cycle (`core.step.solver_cycle(lm_override=...)`) and recomputes
-from the by-then-refreshed `c` afterwards. jnp-tier snapshots store
-`__local_min = NaN` ("restore from c"), which the fused tier reseeds
-exactly like a fresh start.
 
 Periodic saving: ``checkpoint_step=N`` writes `<output_file>.ckpt.npz`
 every N cycles (forces the per-cycle driver); sharded runs with `use_MPI`
@@ -87,62 +78,25 @@ def _shard_ckpt_path(path, coords):
     return f"{base}_{coords[0]}×{coords[1]}.npz"
 
 
-# "Argument not given" marker for save_checkpoint's local_min: passing
-# None EXPLICITLY means "no carry" (jnp tier, saved as NaN), while omitting
-# it falls back to the carry armon() recorded for THIS run (reset at every
-# armon() start, so a reused params object can never leak a previous run's
-# value into a later save).
-_UNSET = object()
-
-
-def _scalars(params, t, cycles, dt_prev, local_min):
+def _scalars(params, t, cycles, dt_prev):
     return dict(
         __fingerprint=np.array(_fingerprint(params)),
         __t=np.asarray(t), __cycles=np.int64(cycles),
         __dt_prev=np.asarray(dt_prev),
-        __local_min=np.asarray(local_min if local_min is not None else np.nan),
     )
 
 
-def save_checkpoint(path, params, state, t, cycles, dt_prev,
-                    local_min=_UNSET, per_shard=None):
-    """Write an exact snapshot. `local_min` is the fused tier's carried CFL
-    minimum; when omitted it is taken from the run the params object just
-    completed (None = no carry: the jnp tier restores it from `state.c`).
-    `per_shard=None` (auto) selects the no-gather per-shard layout for
-    sharded runs with `use_MPI` (the distributed-output rule); True/False
-    force it. In a multi-process run a per-shard save is COLLECTIVE:
-    every process must call it (each writes its addressable shards and
-    all meet a barrier, so any process may restore immediately after)."""
+def save_checkpoint(path, params, state, t, cycles, dt_prev, per_shard=None):
+    """Write an exact snapshot. `per_shard=None` (auto) selects the
+    no-gather per-shard layout for sharded runs with `use_MPI` (the
+    distributed-output rule); True/False force it. In a multi-process run
+    a per-shard save is COLLECTIVE: every process must call it (each
+    writes its addressable shards and all meet a barrier, so any process
+    may restore immediately after)."""
     cfg = params.config
     if per_shard is None:
         per_shard = cfg.spmd and params.use_MPI
-    if local_min is _UNSET:
-        local_min = getattr(params, "_final_local_min", None)
-        # Key the refusal on how the state was actually PRODUCED
-        # (`params._ran_fused`, recorded by the driver that ran), not on
-        # the saving params' configured tier: a fused-run state saved
-        # through a jnp-tier params is just as stale (the tier-neutral
-        # fingerprint loads it anywhere), and a pallas-tier params that
-        # ran the non-fused per-step driver (compare mode) holds a fresh
-        # sound speed that reseeds bit-exactly.
-        if local_min is None and getattr(params, "_ran_fused",
-                                         None) is not False:
-            # Fused kernels never write the sound speed back, so a
-            # fused-run state's c is frozen at its cycle-0 EOS value: a
-            # resume would reseed the dt from it and SILENTLY diverge
-            # from the uninterrupted run (found by the resume fuzz,
-            # tests/test_option_fuzz.py). A params that never ran cannot
-            # establish the state's provenance — refuse that too.
-            solver_error(
-                "config",
-                "saving a state without its CFL carry: save through the "
-                "params object that RAN the solve (it records the carry "
-                "and the state's provenance), or pass local_min= "
-                "explicitly. A fused-tier state's sound speed is cycle-0 "
-                "stale and cannot reseed the time step bit-exactly; pass "
-                "local_min=None to accept a non-bit-exact resume.")
-    scalars = _scalars(params, t, cycles, dt_prev, local_min)
+    scalars = _scalars(params, t, cycles, dt_prev)
 
     if per_shard and cfg.spmd:
         from .subdomain import shard_coords_iter
@@ -176,17 +130,13 @@ def _check_scalars(z, params, path):
         solver_error("config",
                      f"checkpoint {path} was written with a different "
                      f"configuration:\n  {fp}\n  != {_fingerprint(params)}")
-    t = float(z["__t"])
-    cycles = int(z["__cycles"])
-    dt_prev = float(z["__dt_prev"])
-    lm = float(z["__local_min"])
-    return t, cycles, dt_prev, (None if np.isnan(lm) else lm)
+    return float(z["__t"]), int(z["__cycles"]), float(z["__dt_prev"])
 
 
 def load_checkpoint(path, params):
     """Read a snapshot back (auto-detecting global vs per-shard layout);
     validates the NUMERICS fingerprint only — the device layout is free to
-    differ. Returns (device_state, t, cycles, dt_prev, local_min|None).
+    differ. Returns (device_state, t, cycles, dt_prev).
 
     Resharding restore: a snapshot saved on any mesh loads onto any other
     (or onto a single device). The global layout is mesh-neutral by
@@ -195,8 +145,7 @@ def load_checkpoint(path, params):
     `_reshard_load`, which reassembles the globally-padded state from the
     shard files (O(global) host memory — the one restore path that cannot
     stay O(shard)) and re-decomposes it. Bit-exactness across the layout
-    change follows from invariant 2 (sharded == single-device bit-exact,
-    jnp tier); the fused tier's inter-tier ulp drift applies as usual."""
+    change follows from invariant 2 (sharded == single-device bit-exact)."""
     if os.path.exists(path) and not (params.config.spmd and
                                      os.path.exists(_shard_ckpt_path(path, (0, 0)))):
         from ..core.solver import host_to_device
@@ -299,7 +248,7 @@ def _window_from_shards(path, params, geom, r0, r1, c0, c1, meta_box,
                     m = _check_scalars(z, params, spath)
                     if meta_box[0] is None:
                         meta_box[0] = m
-                    elif m[:3] != meta_box[0][:3]:
+                    elif m != meta_box[0]:
                         solver_error("config",
                                      f"checkpoint shard {spath} carries "
                                      f"different scalars than the first "
@@ -360,8 +309,7 @@ def _reshard_load(path, params, geom):
         from jax.sharding import NamedSharding
         from ..parallel.mesh import make_mesh, shard_state_spec
         mesh = make_mesh(cfg.proc_dims, cfg.axis_names,
-                         devices=params.devices,
-                         reorder=params.reorder_grid)
+                         devices=params.devices)
         sharding = NamedSharding(mesh, shard_state_spec(cfg.axis_names))
         lr_t, lc_t = cfg.local_shape
         px_t, py_t = cfg.proc_dims
@@ -397,8 +345,7 @@ def _load_per_shard(path, params):
     cfg = params.config
     if not cfg.spmd:
         solver_error("config", f"checkpoint {path} not found")
-    mesh = make_mesh(cfg.proc_dims, cfg.axis_names, devices=params.devices,
-                     reorder=params.reorder_grid)
+    mesh = make_mesh(cfg.proc_dims, cfg.axis_names, devices=params.devices)
     sharding = NamedSharding(mesh, shard_state_spec(cfg.axis_names))
     lr, lc = cfg.local_shape
     px, py = cfg.proc_dims
@@ -418,7 +365,7 @@ def _load_per_shard(path, params):
             m = _check_scalars(z, params, spath)
             if meta is None:
                 meta = m
-            elif m[:3] != meta[:3]:
+            elif m != meta:
                 solver_error("config",
                              f"checkpoint shard {spath} carries different "
                              f"scalars than shard 0: {m} != {meta}")

@@ -1,6 +1,6 @@
 """Physics test cases (the reference's "model zoo").
 
-TPU-native rebuild of `src/tests.jl` with the exact constants of the Julia
+Rebuild of `src/tests.jl` with the exact constants of the Julia
 reference so the golden-data regression suite carries over:
 
 - default CFL / max time / domain size / origin:  `src/tests.jl:32-44`

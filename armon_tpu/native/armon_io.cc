@@ -1,4 +1,4 @@
-// Native I/O for Armon-TPU: fast writer/reader/comparator for the
+// Native I/O for Armon: fast writer/reader/comparator for the
 // gnuplot-pm3d CSV state files (`src/io.jl:4-43` of the reference).
 //
 // This is the framework's native runtime tier for host-side I/O: at

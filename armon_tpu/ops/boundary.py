@@ -71,11 +71,7 @@ def apply_side_bc(cfg, state, side: Side, vars=COMM_VARS):
 
 def boundary_conditions(cfg, state, axis: Axis, vars=COMM_VARS):
     """Single-device ghost exchange: both global borders along `axis`
-    (`src/halo_exchange.jl:323-354`, global-boundary path).
-
-    The fused Pallas tier only exchanges (rho, u, v, E): p/c/g ghosts are
-    recomputed in-kernel by the EOS, which commutes bitwise with the mirror
-    (u enters only as u^2)."""
+    (`src/halo_exchange.jl:323-354`, global-boundary path)."""
     for side in sides_along(axis):
         state = apply_side_bc(cfg, state, side, vars)
     return state

@@ -1,6 +1,6 @@
 """Equations of state.
 
-Vectorized TPU rebuilds of the reference EOS kernels:
+Vectorized rebuilds of the reference EOS kernels:
 - perfect gas:  `src/kernels.jl:4-13`
 - Bizarrium (Heuze/Jaouen/Jourdren, JCP 2009): `src/kernels.jl:16-55`
 

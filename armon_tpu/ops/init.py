@@ -3,7 +3,7 @@
 Rebuild of the reference `init_test` kernel (`src/kernels.jl:106-145,176-214`):
 cell corner positions from the global index, two-state initialization on cell
 centers, work variables zeroed. The NUMA first-touch logic
-(`src/kernels.jl:193-206`) has no TPU equivalent (HBM is uniform) and is
+(`src/kernels.jl:193-206`) has no equivalent (device memory is uniform) and is
 intentionally dropped (SURVEY.md §2.3.4).
 """
 

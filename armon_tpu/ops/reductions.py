@@ -12,7 +12,7 @@ conservation sums use pairwise reduction (more accurate than sequential);
 they feed tolerance checks only (`src/solver.jl:478-487`).
 
 On a device mesh these become `lax.pmin` / `lax.psum` over the mesh axes —
-the TPU equivalent of the reference's `MPI_Iallreduce(MIN)`
+the equivalent of the reference's `MPI_Iallreduce(MIN)`
 (`src/utils.jl:126-143`) and `MPI.Allreduce(SUM)` (`src/reductions.jl:318-320`).
 """
 

@@ -1,6 +1,6 @@
 """Acoustic Riemann solvers.
 
-Vectorized TPU rebuilds of `src/riemann_schemes.jl`:
+Vectorized rebuilds of `src/riemann_schemes.jl`:
 - two-point acoustic solver `acoustic_Godunov`:  `src/riemann_schemes.jl:21-30`
 - 1st-order flux kernel `acoustic!`:             `src/riemann_schemes.jl:33-43`
 - 2nd-order GAD kernel `acoustic_GAD!`:          `src/riemann_schemes.jl:55-104`

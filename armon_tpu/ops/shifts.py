@@ -1,7 +1,7 @@
 """Shifted array reads for stencil ops.
 
 ``sh(a, k, axis)`` returns an array where ``out[i] = a[i + k]`` along the
-given physical axis — the TPU-native replacement for the reference's strided
+given physical axis — the replacement for the reference's strided
 linear indexing ``a[i + k*s]`` (`src/blocking/blocking.jl:197-206` computes
 the stride ``s``; kernels index with it, e.g. `src/kernels.jl:58-68`).
 

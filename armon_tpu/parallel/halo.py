@@ -1,6 +1,6 @@
-"""Multi-device halo exchange over the TPU mesh.
+"""Multi-device halo exchange over the device mesh.
 
-TPU-native replacement for the reference's MPI halo runtime
+Replacement for the reference's MPI halo runtime
 (`src/halo_exchange.jl:187-368`, `src/blocking/blocks.jl:174-217`):
 
 - the cartesian communicator becomes the 2D `jax.sharding.Mesh`;
@@ -8,7 +8,7 @@ TPU-native replacement for the reference's MPI halo runtime
   `lax.ppermute` per direction of a stacked (nvars, ...) slab buffer — the
   pack step is the `jnp.stack`, and XLA compiles the static communication
   schedule the persistent requests emulate;
-- the GPU-aware-buffer option disappears (data never leaves HBM);
+- the GPU-aware-buffer option disappears (data never leaves device memory);
 - global-border devices apply the mirror BC instead, selected branchlessly
   with `lax.axis_index` (the reference's `rank == -1` fake-neighbour path,
   `src/halo_exchange.jl:290-294`).
@@ -118,18 +118,3 @@ def halo_exchange(cfg, state, axis: Axis, vars=COMM_VARS):
                                             axis=arr_ax)
         updates[v] = a
     return state._replace(**updates)
-
-
-def halo_slabs(cfg, state, axis: Axis, vars):
-    """Fused-tier halo exchange WITHOUT the write-back: return the stacked
-    (nvars, ...) ghost slab pair for in-kernel consumption (the slab mode
-    of `ops/pallas/sweep.py`), so the 2*nvars dynamic-update-slice
-    launches per sweep disappear and only the O(boundary) ppermute
-    remains. EVEN splits along `axis` only: the uneven hi-edge shard's
-    ghost band sits at a traced offset the kernels' static splice cannot
-    address (those configs keep `halo_exchange`)."""
-    n_dev = cfg.proc_dims[int(axis)]
-    assert n_dev > 1 and not cfg.uneven(axis)
-    arrs = [getattr(state, v) for v in vars]
-    ghosts_lo, ghosts_hi, _ = _ghost_slabs(cfg, arrs, axis, vars)
-    return ghosts_lo, ghosts_hi

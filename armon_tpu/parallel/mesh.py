@@ -1,10 +1,11 @@
 """Device mesh construction and sharding specs.
 
-TPU-native replacement for the reference's MPI cartesian topology
+Replacement for the reference's MPI cartesian topology
 (`src/parameters.jl:408-467`): the process grid `P=(px,py)` becomes a 2D
-`jax.sharding.Mesh` with axes ("px", "py"); `reorder_grid=true` (letting MPI
-optimize rank placement) maps to `jax.experimental.mesh_utils` picking an
-ICI-friendly device order.
+`jax.sharding.Mesh` with axes ("px", "py"), a plain reshape of the device
+list. The reference's `reorder_grid` (letting MPI optimize rank placement)
+has nothing to choose: every device reaches every other at the same rate,
+so the option is accepted and has no effect.
 
 State layout under SPMD: every device owns a *padded* block
 (ny_loc+2g, nx_loc+2g). The global on-host array therefore has shape
@@ -19,13 +20,10 @@ import jax
 from jax.sharding import Mesh, PartitionSpec as P
 
 
-def make_mesh(proc_dims, axis_names=("px", "py"), devices=None, reorder=True):
-    """Build a (px, py) mesh. Mirrors `MPI.Cart_create` + reorder
-    (`src/parameters.jl:432-448`): `reorder=True` (the `reorder_grid`
-    default) lets `mesh_utils.create_device_mesh` pick an ICI-friendly
-    device order; `reorder=False` keeps the given device order verbatim —
-    the MPI `reorder=false` rank-placement semantics, and the only way a
-    user-pinned `devices=[...]` order is guaranteed to survive."""
+def make_mesh(proc_dims, axis_names=("px", "py"), devices=None):
+    """Build a (px, py) mesh over the first px*py devices, in the given
+    order (`MPI.Cart_create`, `src/parameters.jl:432-448`): device
+    k = by*px + bx owns block (bx, by)."""
     px, py = proc_dims
     if devices is None:
         devices = jax.devices()
@@ -34,22 +32,7 @@ def make_mesh(proc_dims, axis_names=("px", "py"), devices=None, reorder=True):
         from ..utils.errors import solver_error
         solver_error("config",
                      f"mesh {px}x{py} needs {n} devices, have {len(devices)}")
-    if reorder:
-        try:
-            from jax.experimental import mesh_utils
-            dev_array = mesh_utils.create_device_mesh((py, px),
-                                                      devices=devices[:n])
-        except Exception as e:
-            # Falling back to verbatim order silently would be a perf
-            # cliff on real topologies (ppermute neighbors on non-adjacent
-            # chips) indistinguishable from a kernel regression — warn.
-            import warnings
-            warnings.warn(f"ICI-friendly device reorder failed "
-                          f"({type(e).__name__}: {e}); using the verbatim "
-                          f"device order")
-            dev_array = np.asarray(devices[:n]).reshape(py, px)
-    else:
-        dev_array = np.asarray(devices[:n]).reshape(py, px)
+    dev_array = np.asarray(devices[:n]).reshape(py, px)
     # Mesh axes ordered (py, px) to match the (rows, cols) array layout.
     return Mesh(dev_array, (axis_names[1], axis_names[0]))
 

@@ -4,17 +4,15 @@ Rebuild of the reference front-end `ArmonParameters` (`src/parameters.jl`):
 a keyword-argument cascade where each init step consumes its options and any
 leftover raises an error naming the unknown options
 (`src/parameters.jl:359-372`). The full reference option space (SURVEY.md
-§2.5) is accepted; options that exist to manage x86/GPU/MPI machinery with no
-TPU counterpart (threads, SIMD, NUMA, cache-blocking scheduler, Scotch
-partitioning, GPU-aware buffers) are validated and recorded but have no
-effect — the equivalent decisions live in XLA/Pallas (SURVEY.md §2.3, §2.4).
+§2.5) is accepted; options that exist to manage the reference's own
+threading/SIMD/MPI machinery (threads, SIMD, NUMA, cache-blocking scheduler,
+Scotch partitioning, GPU-aware buffers, the backend choice) are validated and
+recorded but have no effect — the equivalent decisions live in XLA
+(SURVEY.md §2.3, §2.4). The kernels are plain `jax.numpy`/`lax` code that XLA
+compiles and fuses for whatever backend JAX runs on.
 
-TPU-native additions:
-- ``kernel_tier``: 'jnp' (pure-XLA reference tier) or 'pallas' (fused Mosaic
-  kernels), replacing the reference's device/backend axis
-  (`:CPU/:CPU_HP/:CUDA/:ROCM/:Kokkos`).
-- ``P=(px, py)`` now selects a `jax.sharding.Mesh` layout instead of an MPI
-  process grid.
+``P=(px, py)`` selects a `jax.sharding.Mesh` layout instead of an MPI
+process grid.
 """
 
 
@@ -196,20 +194,21 @@ class ArmonParameters:
         (src/parameters.jl:408-467)."""
         self.use_MPI = bool(o.pop("use_MPI", False))  # accepted; mesh replaces MPI
         self.P = tuple(o.pop("P", (1, 1)))
+        # MPI rank reordering: the device mesh is a plain reshape of the
+        # device list (every device reaches every other at the same rate).
         self.reorder_grid = bool(o.pop("reorder_grid", True))
-        o.pop("global_comm", None)   # no communicator on TPU
-        self.gpu_aware = bool(o.pop("gpu_aware", True))  # N/A: data stays in HBM
-        self.devices = o.pop("devices", None)  # explicit device list (TPU-native)
+        o.pop("global_comm", None)   # no communicator: the mesh replaces it
+        self.gpu_aware = bool(o.pop("gpu_aware", True))  # N/A: data stays on device
+        self.devices = o.pop("devices", None)  # explicit device list
         if len(self.P) != 2 or any(p <= 0 for p in self.P):
             solver_error("config", f"Invalid process grid P: {self.P}")
         # Multi-process (multi-host) runs — the analog of the reference's
         # `MPI.Init` + cartesian communicator over a cluster
         # (src/parameters.jl:408-431): hand the coordinator endpoint to
         # `jax.distributed.initialize` and the mesh below spans every
-        # process's devices (ICI intra-pod, DCN across hosts). All three
-        # options must be given together (num_processes/process_id may be
-        # omitted where the launcher environment provides them, e.g. on
-        # Cloud TPU pods).
+        # process's devices. All three options must be given together
+        # (num_processes/process_id may be omitted where the launcher
+        # environment provides them).
         self.coordinator_address = o.pop("coordinator_address", None)
         self.num_processes = o.pop("num_processes", None)
         self.process_id = o.pop("process_id", None)
@@ -229,50 +228,26 @@ class ArmonParameters:
             self.use_MPI = True
 
     def _init_device(self, o):
-        """src/parameters.jl:470-530 — backend knobs. Threading/SIMD/NUMA/
-        cache-blocking are x86 machinery with no TPU equivalent; accepted as
-        no-ops for config compatibility."""
-        self.device = o.pop("device", "tpu")
+        """src/parameters.jl:470-530 — backend knobs. The backend is whatever
+        JAX runs on; threading/SIMD/NUMA/cache-blocking are the reference's
+        host machinery, which XLA replaces. Accepted as no-ops for config
+        compatibility."""
+        self.device = o.pop("device", "default")
         self.use_gpu = bool(o.pop("use_gpu", False))
         if o.pop("use_kokkos", False):
-            solver_error("config", "use_kokkos is not supported: the native "
-                                   "kernel tier on TPU is Pallas (kernel_tier='pallas')")
+            solver_error("config", "use_kokkos is not supported: the kernels "
+                                   "are jax.numpy code compiled by XLA for "
+                                   "the backend JAX runs on")
         self.use_threading = bool(o.pop("use_threading", True))
         self.use_simd = bool(o.pop("use_simd", True))
         self.use_cache_blocking = bool(o.pop("use_cache_blocking", True))
         self.async_cycle = bool(o.pop("async_cycle", False))
-        self.block_size = o.pop("block_size", None)  # Pallas tile-size hint
         self.use_two_step_reduction = bool(o.pop("use_two_step_reduction", False))
         self.workload_distribution = o.pop("workload_distribution", "simple")
         o.pop("distrib_params", None)
         self.numa_aware = bool(o.pop("numa_aware", False))
         self.lock_memory = bool(o.pop("lock_memory", False))
         self.busy_wait_limit = int(o.pop("busy_wait_limit", 100))
-        # default 'auto': fused Mosaic kernels when they are the fast path
-        # (f32 on a real TPU), the pure-XLA tier otherwise.
-        self.kernel_tier = str(o.pop("kernel_tier", "auto"))
-        if self.kernel_tier not in ("jnp", "pallas", "auto"):
-            solver_error("config", f"Unknown kernel_tier: '{self.kernel_tier}'")
-        # use_fast_math: the reference's build preference
-        # (src/generic_kernel.jl:3, default true there — and here). Affects
-        # only compiled f32 Pallas kernels (NR-refined reciprocal divides,
-        # ~1 ulp; still zero-diff at the f32 golden gates). Set False for
-        # strict IEEE divides.
-        self.use_fast_math = bool(o.pop("use_fast_math", True))
-        # Whole-cycle pair-kernel routing crossover (fused tier): local
-        # grids with max(n_local) <= pair_threshold run one kernel pass
-        # per cycle — on meshes the threshold applies to the shard
-        # extent. Default from ARMON_PAIR_THRESHOLD (dev-chip measured
-        # crossover 2048); <= 0 = per-sweep kernels everywhere.
-        import os as _os
-        self.pair_threshold = int(o.pop(
-            "pair_threshold", _os.environ.get("ARMON_PAIR_THRESHOLD", 2048)))
-        # Temporal blocking (fused tier): K cycles per kernel launch on
-        # launch-latency-bound tiny grids (single device, single-tile —
-        # `ops/pallas/sweep.multicycle_geom_ok` gates admissibility).
-        # Default from ARMON_TEMPORAL_K; <= 1 disables.
-        self.temporal_blocking = int(o.pop(
-            "temporal_blocking", _os.environ.get("ARMON_TEMPORAL_K", 8)))
 
     def _init_profiling(self, o):
         """src/parameters.jl:532-575. Known profilers: 'trace'
@@ -333,7 +308,7 @@ class ArmonParameters:
         self.output_precision = int(p) if p is not None else \
             (17 if self.data_type.itemsize == 8 else 9)
         self.animation_step = int(o.pop("animation_step", 0))
-        # TPU-native: write a restartable snapshot every N cycles
+        # Write a restartable snapshot every N cycles
         # (armon_tpu.io.restart; resume with armon(..., restore_from=path)).
         self.checkpoint_step = int(o.pop("checkpoint_step", 0))
         self.compare = bool(o.pop("compare", False))
@@ -370,34 +345,24 @@ class ArmonParameters:
                 dt_on_even_cycles=self.dt_on_even_cycles,
                 proc_dims=self.P,
                 n_edge=self.n_edge,
-                kernel_tier=self.kernel_tier,
-                block_size=tuple(self.block_size) if self.block_size else None,
-                fast_math=self.use_fast_math,
-                pair_threshold=self.pair_threshold,
-                temporal_blocking=self.temporal_blocking,
             )
         return self._config
 
     def memory_required(self) -> dict:
-        """Byte accounting, analog of `src/blocking/block_grid.jl:598-709`.
-        Reports BOTH tiers: `per_device_total_bytes` is the jnp/full-state
-        footprint (11 resident fields + measured loop transients);
-        `per_device_fused_total_bytes` is the lean fused-tier driver
-        (5-field carry, VERDICT r4 #2)."""
-        from .parallel.blocking import memory_required as _mem
-        mem = _mem(self.n_local, self.nghost, self.data_type.itemsize,
-                   n_fields=len(State._fields))
-        n_dev = self.P[0] * self.P[1]
-        mem["total_bytes"] = mem["per_device_total_bytes"] * n_dev
-        mem["fused_total_bytes"] = mem["per_device_fused_total_bytes"] * n_dev
+        """Byte accounting, analog of `src/blocking/block_grid.jl:598-709`:
+        per device (`block_memory`) and over the whole mesh."""
+        mem = block_memory(self.n_local, self.nghost,
+                           self.data_type.itemsize,
+                           n_fields=len(State._fields))
+        mem["total_bytes"] = mem["per_device_total_bytes"] * \
+            self.P[0] * self.P[1]
         return mem
 
     def __repr__(self):
         return (f"ArmonParameters(test={self.test!r}, N={self.N}, "
                 f"dtype={self.data_type.name}, scheme={self.scheme}, "
                 f"projection={self.projection}, limiter={self.riemann_limiter}, "
-                f"splitting={self.axis_splitting}, P={self.P}, "
-                f"tier={self.kernel_tier})")
+                f"splitting={self.axis_splitting}, P={self.P})")
 
     def describe(self) -> str:
         """Multi-line parameter block (`print_parameters`,
@@ -408,7 +373,7 @@ class ArmonParameters:
                    ("only at even cycles" if self.dt_on_even_cycles
                     else "every cycle"))
         lines = [
-            "Armon-TPU parameters:",
+            "Armon parameters:",
             f" - test:       {self.test!r}",
             f" - grid:       {self.N[0]}x{self.N[1]} cells "
             f"(+{self.nghost} ghosts), domain {self.domain_size} "
@@ -421,15 +386,34 @@ class ArmonParameters:
             f" - splitting:  {self.axis_splitting}",
             f" - time step:  {dt_line}; CFL={self.cfl}",
             f" - stops at:   t={self.maxtime} or {self.maxcycle} cycles",
-            f" - kernels:    {self.kernel_tier} tier"
-            + (", fast-math divides" if self.use_fast_math else
-               ", strict IEEE"),
             f" - mesh:       {self.P[0]}x{self.P[1]} devices, "
-            f"{mem['per_device_total_bytes'] / 1e6:.1f} MB/device "
-            f"({mem['per_device_fused_total_bytes'] / 1e6:.1f} MB lean "
-            f"fused)",
+            f"{mem['per_device_total_bytes'] / 1e6:.1f} MB/device",
         ]
         return "\n".join(lines)
+
+
+def block_memory(n_local, nghost, itemsize, n_fields=11, comm_vars=7,
+                 transient_fields=5) -> dict:
+    """Itemized byte accounting of one device's padded block, including
+    the time loop's steady-state transients (analog of
+    `src/blocking/block_grid.jl:598-709`): the `n_fields` state arrays,
+    `transient_fields` extra full arrays that XLA keeps live across the
+    while-loop carry and the sweep temporaries (an estimate, not a
+    measurement — `memory_stats()["peak_bytes_in_use"]` is the measured
+    figure), and the stacked halo slabs on four sides."""
+    nx, ny = n_local
+    rows, cols = ny + 2 * nghost, nx + 2 * nghost
+    field = rows * cols * itemsize
+    state = n_fields * field
+    transients = transient_fields * field
+    halo = 2 * (rows + cols) * nghost * comm_vars * itemsize
+    return {
+        "per_device_field_bytes": field,
+        "per_device_state_bytes": state,
+        "per_device_transient_bytes": transients,
+        "per_device_halo_bytes": halo,
+        "per_device_total_bytes": state + transients + halo,
+    }
 
 
 def data_type(params: ArmonParameters):

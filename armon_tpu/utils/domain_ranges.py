@@ -2,9 +2,9 @@
 
 Rebuild of `src/domain_ranges.jl`: the reference iterates flattened arrays
 through strided `DomainRange{col,row}` ranges and per-step corner offsets
-(`StepsRanges`, `src/parameters.jl:984-1025`). On TPU the same information
+(`StepsRanges`, `src/parameters.jl:984-1025`). Here the same information
 becomes static 2D slices of the padded array; this module is the shared
-slice algebra used by the tile planner, the I/O row iterator and the tests.
+slice algebra used by the I/O row iterator and the tests.
 
 A `DomainRange` is a pair of (start, stop) per axis in *cell* coordinates
 relative to the real domain's bottom-left corner (0-based): the real domain

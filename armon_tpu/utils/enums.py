@@ -1,12 +1,11 @@
 """Axes and sides of the 2D domain.
 
-TPU-native rebuild of the reference's enums (`src/utils.jl:15-77`): `Axis`
+Rebuild of the reference's enums (`src/utils.jl:15-77`): `Axis`
 (X, Y) and `Side` (Left/Right/Bottom/Top), with the side<->axis maps used by
 boundary conditions and halo exchange.
 
 Array convention used throughout this package: state arrays have shape
-``(ny_tot, nx_tot)`` (row-major, X contiguous in the last dimension so that X
-is the TPU lane dimension). ``Axis.X`` therefore maps to array axis 1 and
+``(ny_tot, nx_tot)`` (row-major, X contiguous in the last dimension). ``Axis.X`` therefore maps to array axis 1 and
 ``Axis.Y`` to array axis 0.
 """
 

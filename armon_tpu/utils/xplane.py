@@ -1,71 +1,41 @@
-"""XPlane trace parsing — per-kernel DEVICE times from a profiler dump.
+"""Profiler-trace reduction — per-kernel DEVICE times from an XPlane dump.
 
 The reference wraps every kernel call in profiling callbacks so its section
 stats are in-loop truth (`src/profiling.jl:6-68`). The XLA analog:
-`profiling=['trace']` dumps an XPlane profile of the run; this module
-parses it and aggregates per-kernel device-execution times, which
-`SolverLog.analyse()` then surfaces as the in-loop section truth — the
-re-jitted `measure_sections` probes are labeled as probes there
-(core/solver.py, VERDICT-r3 missing #3).
+`profiling=['trace']` dumps a `jax.profiler` trace of the run; this module
+reads it with `jax.profiler.ProfileData` (shipped with JAX) and aggregates
+per-kernel device-execution times, which `SolverLog.analyse()` then
+surfaces as the in-loop section truth.
 
-The XPlane protobuf schema ships inside TensorFlow; it is loaded STANDALONE
-(importlib from the _pb2.py file) so parsing costs ~70 ms instead of a full
-`import tensorflow`. No dump, no proto module, or an unrecognized plane
-layout all degrade to `None` — trace parsing must never fail a run.
+Which events are read:
+
+- GPU: ONE device plane (`/device:GPU:<lowest>`); a second device plane of
+  a mesh run repeats the same program on another shard. Kernels come from
+  its `XLA Ops` line when the plane has one (one event per launched
+  kernel; the plane's `Stream #N` lines then repeat the same kernels and
+  would count their time twice), otherwise from its `Stream #N` lines,
+  where each kernel appears once (this is what an H100 trace of a
+  command-buffer program holds: one line `Stream #13(MemcpyD2H,Compute,
+  MemcpyD2D)`). Program executions come from `XLA Modules` when present.
+- CPU (the test backend, which has no device plane): the host plane's XLA
+  executor lines, without the thread-pool bookkeeping events.
+
+A dump that yields no kernel events raises `TraceParseError`: a traced run
+whose trace cannot be read is a failure, not a silent empty result.
 """
 
 import glob
 import os
 from collections import OrderedDict
 
-# Event names that are executor scaffolding, not kernels (CPU backend).
-_INFRA_PREFIXES = ("ThunkExecutor", "ThreadpoolListener", "end:")
+OPS_LINE = "XLA Ops"
+MODULES_LINE = "XLA Modules"
+_CPU_EXECUTOR_LINES = ("XLAEigen", "XLAPjRtCpuClient")
+_CPU_INFRA_PREFIXES = ("ThunkExecutor", "ThreadpoolListener", "end:")
 
 
-def _load_pb2():
-    """The xplane_pb2 module, loaded without importing tensorflow."""
-    import importlib.util
-    # find_spec locates the install WITHOUT executing tensorflow/__init__
-    # (a multi-second import this parser exists to avoid).
-    spec = importlib.util.find_spec("tensorflow")
-    if spec is None or not spec.submodule_search_locations:
-        return None
-    tf_dir = list(spec.submodule_search_locations)[0]
-    path = os.path.join(tf_dir, "tsl", "profiler", "protobuf", "xplane_pb2.py")
-    if not os.path.exists(path):
-        return None
-    spec = importlib.util.spec_from_file_location("_armon_xplane_pb2", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _device_lines(xspace):
-    """Yield (plane, line) pairs holding device kernel executions.
-
-    TPU: planes named '/device:TPU:N' (every line is device timeline).
-    CPU (the test backend): the '/host:CPU' plane's intra-process XLA
-    executor lines ('tf_XLAEigen/...' thread pool, 'tf_XLAPjRtCpuClient/...'
-    client thread) — the compile lines ('tf_xla-...-codegen') and the
-    python line are not executions."""
-    device_planes = sorted((p for p in xspace.planes
-                            if p.name.startswith("/device:") and p.lines),
-                           key=lambda p: p.name)
-    if device_planes:
-        # One plane only: SPMD kernels run on every device concurrently,
-        # so summing across planes would multiply each kernel's in-loop
-        # time by the device count. Device 0 is representative (the mesh
-        # gates pin shards bit-exact; load skew shows up as idle gaps,
-        # not kernel-time differences).
-        for line in device_planes[0].lines:
-            yield device_planes[0], line
-        return
-    for p in xspace.planes:
-        if p.name != "/host:CPU":
-            continue
-        for line in p.lines:
-            if "XLAEigen" in line.name or "XLAPjRtCpuClient" in line.name:
-                yield p, line
+class TraceParseError(RuntimeError):
+    pass
 
 
 def newest_dump(log_dir):
@@ -75,36 +45,98 @@ def newest_dump(log_dir):
     return max(files, key=os.path.getmtime) if files else None
 
 
+def _gpu_index(plane_name):
+    try:
+        return int(plane_name.rsplit(":", 1)[1])
+    except ValueError:
+        return 1 << 30
+
+
+def trace_events(path):
+    """{"ops": [(name, start_ns, dur_ns), ...], "modules": [...],
+    "plane": plane name} from one XPlane file (see the module docstring
+    for which plane and lines)."""
+    from jax.profiler import ProfileData
+    profile = ProfileData.from_file(str(path))
+    planes = list(profile.planes)
+    gpus = sorted((p for p in planes if p.name.startswith("/device:GPU:")),
+                  key=lambda p: _gpu_index(p.name))
+    out = {"ops": [], "modules": []}
+    if gpus:
+        plane = gpus[0]
+        lines = {ln.name: ln for ln in plane.lines}
+        ops_lines = [lines[OPS_LINE]] if OPS_LINE in lines else \
+            [ln for name, ln in lines.items() if name.startswith("Stream #")]
+        if not ops_lines:
+            raise TraceParseError(
+                f"{path}: plane {plane.name} has neither an {OPS_LINE!r} "
+                f"nor a 'Stream #' line (lines: {sorted(lines)})")
+        for line in ops_lines:
+            out["ops"] += [(e.name, e.start_ns, e.duration_ns)
+                           for e in line.events]
+        if MODULES_LINE in lines:
+            out["modules"] = [(e.name, e.start_ns, e.duration_ns)
+                              for e in lines[MODULES_LINE].events]
+        out["plane"] = plane.name
+        return out
+    for plane in planes:
+        if plane.name != "/host:CPU":
+            continue
+        for line in plane.lines:
+            if not any(m in line.name for m in _CPU_EXECUTOR_LINES):
+                continue
+            out["ops"] += [(e.name, e.start_ns, e.duration_ns)
+                           for e in line.events
+                           if not e.name.startswith(_CPU_INFRA_PREFIXES)
+                           and "::" not in e.name]
+        out["plane"] = plane.name
+    return out
+
+
+def kernel_table(ops):
+    """OrderedDict {kernel name: {"seconds": total, "calls": n}} of
+    (name, start_ns, dur_ns) events, seconds-descending."""
+    totals = {}
+    for name, _, dur in ops:
+        entry = totals.setdefault(name, [0.0, 0])
+        entry[0] += dur
+        entry[1] += 1
+    order = sorted(totals.items(), key=lambda kv: -kv[1][0])
+    return OrderedDict((k, {"seconds": d / 1e9, "calls": n})
+                       for k, (d, n) in order)
+
+
+def busy_seconds(ops):
+    """Union of the events' [start, start+dur) intervals, in seconds:
+    the time in which at least one kernel ran."""
+    busy = 0.0
+    end = None
+    for start, dur in sorted((s, d) for _, s, d in ops):
+        stop = start + dur
+        if end is None or start >= end:
+            busy += dur
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e9
+
+
+def window_seconds(ops):
+    """From the first kernel's start to the last kernel's end."""
+    if not ops:
+        return 0.0
+    return (max(s + d for _, s, d in ops) - min(s for _, s, _ in ops)) / 1e9
+
+
 def parse_kernel_times(log_dir):
-    """Aggregate per-kernel device time from the newest XPlane dump under
-    `log_dir`: OrderedDict {kernel name: {"seconds": total, "calls": n}},
-    seconds-descending. Returns None when there is no dump or no parser
-    (callers fall back to the probe numbers)."""
+    """Per-kernel device time from the newest XPlane dump under `log_dir`
+    (`kernel_table`). Raises TraceParseError when there is no dump or it
+    holds no kernel events."""
     path = newest_dump(log_dir)
     if path is None:
-        return None
-    pb2 = _load_pb2()
-    if pb2 is None:
-        return None
-    xspace = pb2.XSpace()
-    try:
-        with open(path, "rb") as f:
-            xspace.ParseFromString(f.read())
-    except Exception:
-        return None
-
-    totals = {}
-    for plane, line in _device_lines(xspace):
-        meta = plane.event_metadata
-        for ev in line.events:
-            name = meta[ev.metadata_id].name
-            if name.startswith(_INFRA_PREFIXES) or "::" in name:
-                continue
-            entry = totals.setdefault(name, [0, 0])
-            entry[0] += ev.duration_ps
-            entry[1] += 1
-    if not totals:
-        return None
-    order = sorted(totals.items(), key=lambda kv: -kv[1][0])
-    return OrderedDict((k, {"seconds": d / 1e12, "calls": n})
-                       for k, (d, n) in order)
+        raise TraceParseError(f"no *.xplane.pb under {log_dir}")
+    ops = trace_events(path)["ops"]
+    if not ops:
+        raise TraceParseError(f"{path}: no kernel events")
+    return kernel_table(ops)

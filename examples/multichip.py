@@ -1,7 +1,7 @@
 """Domain decomposition over a device mesh.
 
-On a multi-chip TPU slice this shards the domain over all chips; on a dev
-box run it with virtual devices:
+On a multi-GPU host this shards the domain over all cards; without
+accelerators run it with virtual CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
     JAX_PLATFORMS=cpu python examples/multichip.py

@@ -3,8 +3,7 @@
 Runs the fuzz invariants from tests/test_option_fuzz.py over a much larger
 seed range than the committed suite (which pins a handful of seeds for
 regression speed). This is the bug-hunting mode: the round-3 session found
-four real bugs (nghost floor, NaN-dropping pmin, carry-less fused saves,
-Strang step-file collisions) with exactly these oracles at small seed
+real bugs (nghost floor, NaN-dropping pmin, Strang step-file collisions) with exactly these oracles at small seed
 counts — more seeds, more geometry/option corners.
 
 Usage:

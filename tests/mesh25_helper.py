@@ -38,7 +38,7 @@ from armon_tpu.io.subdomain import compare_sub_domain_with_golden
 def run(params):
     state = make_init(params)()
     loop = make_jit_loop(params)
-    state, t, cycles, dt, lm, ok = loop(state)
+    state, t, cycles, dt, ok = loop(state)
     assert bool(ok)
     return state, int(cycles), float(dt)
 

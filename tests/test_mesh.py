@@ -1,4 +1,4 @@
-"""Multi-device sharding equivalence — the TPU analog of the reference's MPI
+"""Multi-device sharding equivalence — the analog of the reference's MPI
 test matrix (`test/mpi.jl:464-475,363-398`): N-device runs must reproduce the
 single-device run bit-for-bit, and the halo exchange must move exactly the
 right cells (DebugIndexes test, `test/mpi.jl:303-360`).
@@ -27,25 +27,30 @@ from armon_tpu.io.output import read_reference_csv, compare_states
 # reference's remainder-to-edge-ranks rule (`src/parameters.jl:673-697`).
 MESHES = [(1, 2), (2, 1), (2, 2), (4, 2), (2, 4), (1, 4), (4, 1),
           (3, 1), (1, 3), (3, 2)]
+# f32 on the mesh shapes of the four-card runs (chip_smoke.py --four-cards)
+# and the other four-device row split.
+CASES = ([(P, np.float64) for P in MESHES]
+         + [(P, np.float32) for P in [(2, 2), (4, 1), (1, 4)]])
 
 
 def run(params):
     state = make_init(params)()
     loop = make_jit_loop(params)
-    state, t, cycles, dt, lm, ok = loop(state)
+    state, t, cycles, dt, ok = loop(state)
     assert bool(ok)
     return gather_state(params, state), int(cycles), float(dt)
 
 
-@pytest.mark.parametrize("P", MESHES, ids=lambda p: f"{p[0]}x{p[1]}")
-def test_sharded_matches_single_device(P):
+@pytest.mark.parametrize("P,dtype", CASES, ids=[
+    f"{p[0]}x{p[1]}" + ("-f32" if d is np.float32 else "") for p, d in CASES])
+def test_sharded_matches_single_device(P, dtype):
     needed = P[0] * P[1]
     if len(jax.devices()) < needed:
         pytest.skip(f"needs {needed} devices")
-    single = reference_params("Sod_circ", np.float64, maxcycle=20)
+    single = reference_params("Sod_circ", dtype, maxcycle=20)
     ref_host, ref_cycles, ref_dt = run(single)
 
-    sharded = reference_params("Sod_circ", np.float64, maxcycle=20, P=P)
+    sharded = reference_params("Sod_circ", dtype, maxcycle=20, P=P)
     host, cycles, dt = run(sharded)
 
     assert cycles == ref_cycles
@@ -208,7 +213,7 @@ def test_both_axes_uneven_poisoned_slack():
     state = state._replace(**poisoned)
 
     loop = make_jit_loop(params)
-    state, t, cycles, dt, lm, ok = loop(state)
+    state, t, cycles, dt, ok = loop(state)
     assert bool(ok) and int(cycles) == ref_cycles
     assert float(dt) == ref_dt
     host = gather_state(params, state)
@@ -222,8 +227,8 @@ def test_both_axes_uneven_poisoned_slack():
 @pytest.mark.parametrize("test", ["Sedov", "Bizarrium"])
 def test_sharded_sedov_bizarrium(test):
     """The reference excludes Sedov/Bizarrium from its MPI tests — they are
-    broken under domain decomposition there (`test/mpi.jl:26-27`). The TPU
-    mesh path handles them: sharded == single-device bit-for-bit."""
+    broken under domain decomposition there (`test/mpi.jl:26-27`). The
+    device-mesh path handles them: sharded == single-device bit-for-bit."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
     single = reference_params(test, np.float64, maxcycle=25)
@@ -289,68 +294,6 @@ def test_uneven_split_shapes():
     with pytest.raises(Exception):
         # too small to split: edge shard would own < nghost cells
         reference_params("Sod", np.float64, N=(9, 9), P=(4, 1)).config
-
-
-@pytest.mark.parametrize("routing", ["pair", "persweep"])
-def test_fused_mesh_slab_fills(routing):
-    """Round-4 in-kernel mesh ghost fills: fused-tier mesh runs must stay
-    correct with (a) the flat-axis mirror inlined in-kernel, (b) the
-    sharded-axis exchanged slabs spliced in-kernel (`halo_slabs` +
-    `_halo_cat_slab`/`_bc_x_apply_slab`), and (c) the strip carries live
-    on admissible meshes. Flat-X meshes are pinned BIT-exact vs single
-    device; sharded-X meshes carry the known cross-layout FMA-contraction
-    artifact of the CPU test backend (CLAUDE.md invariant 2 caveat —
-    measured byte-identical under ARMON_FORCE_XLA_FILLS, i.e. not a value
-    change) and are gated ulp-tight instead. The program shape itself is
-    pinned: the traced loop must contain ZERO ghost-band
-    dynamic-update-slice write-backs on even-split meshes under BOTH
-    routings — pair routing re-routes per-sweep on sharded-X meshes
-    (`step.pair_routing_on`, VERDICT r4 #5), so no mesh/routing
-    combination keeps a fill thunk."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 devices")
-    kw = {"pair_threshold": 0} if routing == "persweep" else {}
-
-    def run(P=None):
-        p = reference_params("Sod_circ", np.float64, maxcycle=15,
-                             kernel_tier="pallas",
-                             **(dict(P=P) if P else {}), **kw)
-        state = make_init(p)()
-        loop = make_jit_loop(p)
-        out, t, cycles, dt, lm, ok = loop(state)
-        assert bool(ok)
-        return gather_state(p, out), int(cycles), float(dt), p
-
-    ref, rc, rdt, _ = run()
-    for P, exact in [((1, 2), True), ((1, 4), True), ((2, 2), False)]:
-        host, cycles, dt, p = run(P)
-        assert cycles == rc
-        g = p.nghost
-        for var in ("rho", "u", "v", "E"):
-            a = np.asarray(getattr(ref, var))[g:-g, g:-g]
-            b = np.asarray(getattr(host, var))[g:-g, g:-g]
-            if exact:
-                assert dt == rdt
-                assert np.array_equal(a, b), f"{var} differs on mesh {P}"
-            else:
-                assert np.allclose(a, b, rtol=1e-12, atol=1e-13), \
-                    f"{var} beyond ulp drift on mesh {P}"
-
-    # Program-shape gate: no ghost-band write-backs left per cycle —
-    # in BOTH routings (pair routing falls back to per-sweep on the
-    # sharded-X (2,2) mesh, `step.pair_routing_on`).
-    p = reference_params("Sod_circ", np.float64, maxcycle=15, P=(2, 2),
-                         kernel_tier="pallas", **kw)
-    text = str(jax.make_jaxpr(make_jit_loop(p))(make_init(p)()))
-    assert " dynamic_update_slice[" not in text and \
-        " dynamic_update_slice " not in text
-    if routing == "pair":
-        # ...and the gate itself: sharded-X refuses pair, flat-X keeps it.
-        from armon_tpu.core.step import pair_routing_on
-        assert not pair_routing_on(p.config)
-        p_flat = reference_params("Sod_circ", np.float64, maxcycle=15,
-                                  P=(1, 2), kernel_tier="pallas", **kw)
-        assert pair_routing_on(p_flat.config)
 
 
 def test_dryrun_entry():

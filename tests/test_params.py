@@ -51,7 +51,7 @@ def test_nghost_floor_is_sum():
     (`src/parameters.jl:1008`) and GAD reads one more cell on each side
     (`src/riemann_schemes.jl:66-81`), so e.g. GAD+euler at the product
     floor (2) makes the last real cell read PAST the ghost band (measured:
-    NaN pad reads in the fused tier, wrapped rows in the jnp tier). The
+    wrapped rows in the shifted-array stencils). The
     rules coincide at GAD+euler_2nd (4) — the only floor the reference's
     suite exercises."""
     for scheme, projection, floor in [("GAD", "euler_2nd", 4),
@@ -111,5 +111,35 @@ def test_reference_noop_options_accepted():
         use_cache_blocking=False, async_cycle=True, numa_aware=True,
         lock_memory=False, workload_distribution="scotch", busy_wait_limit=100,
         use_two_step_reduction=True, gpu_aware=True, reorder_grid=True,
-        block_size=(64, 64), use_gpu=False,
+        use_gpu=False, device="CUDA",
     )
+
+
+@pytest.mark.parametrize("option,value", [
+    ("kernel_tier", "pallas"), ("use_fast_math", True),
+    ("pair_threshold", 2048), ("temporal_blocking", 8),
+    ("block_size", (64, 64)),
+])
+def test_removed_kernel_options_rejected(option, value):
+    """The options that chose and tuned the removed fused-kernel tier are
+    unknown options now: the usual unconsumed-options error names them."""
+    with pytest.raises(TypeError, match=f"'{option}'"):
+        ArmonParameters(test="Sod", **{option: value})
+
+
+def test_block_memory_accounting():
+    """Per-device byte accounting: fields, loop transients and the halo
+    slabs of a padded block; the mesh total is per-device x devices."""
+    from armon_tpu.params import block_memory
+    mem = block_memory((100, 100), 4, 8)
+    field = 108 * 108 * 8
+    assert mem["per_device_field_bytes"] == field
+    assert mem["per_device_state_bytes"] == 11 * field
+    assert mem["per_device_transient_bytes"] == 5 * field
+    assert mem["per_device_halo_bytes"] == 2 * (108 + 108) * 4 * 7 * 8
+    assert mem["per_device_total_bytes"] == (
+        16 * field + mem["per_device_halo_bytes"])
+    p = ArmonParameters(test="Sod", N=(100, 99), P=(2, 3))
+    m = p.memory_required()
+    assert m["total_bytes"] == 6 * m["per_device_total_bytes"]
+    assert m["per_device_field_bytes"] == (33 + 8) * (50 + 8) * 8

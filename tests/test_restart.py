@@ -1,7 +1,5 @@
 """Checkpoint / restart: an interrupted run resumed from a snapshot must be
-bit-identical to an uninterrupted run (both kernel tiers, incl. sharded)."""
-
-import os
+bit-identical to an uninterrupted run (every driver, incl. sharded)."""
 
 import numpy as np
 import pytest
@@ -11,7 +9,7 @@ import jax
 from conftest import reference_params
 
 from armon_tpu import armon
-from armon_tpu.core.solver import make_init, make_jit_loop, gather_state
+from armon_tpu.core.solver import gather_state
 from armon_tpu.io.restart import save_checkpoint, load_checkpoint
 from armon_tpu.utils.errors import SolverException
 
@@ -23,17 +21,21 @@ def full_run(test, maxcycle, **kw):
     return params, stats
 
 
-@pytest.mark.parametrize("tier", ["jnp", "pallas"])
-def test_resume_bit_exact(tier, tmp_path):
-    ref_params, ref = full_run("Sod_circ", 20, kernel_tier=tier)
+@pytest.mark.parametrize("driver", ["jit", "cycle"])
+def test_resume_bit_exact(driver, tmp_path):
+    ref_params, ref = full_run("Sod_circ", 20)
 
     # run 8 cycles, snapshot, resume for the remaining 12
-    p1, s1 = full_run("Sod_circ", 8, kernel_tier=tier)
+    p1, s1 = full_run("Sod_circ", 8)
     ckpt = tmp_path / "run.ckpt.npz"
     save_checkpoint(ckpt, p1, s1.data, s1.final_time, s1.cycles, s1.last_dt)
 
+    # a checkpoint_step the run never reaches still selects the per-cycle
+    # host driver (one jitted cycle per call)
+    kw = dict(checkpoint_step=1000, output_dir=str(tmp_path)) \
+        if driver == "cycle" else {}
     p2 = reference_params("Sod_circ", np.float64, maxcycle=20,
-                          return_data=True, kernel_tier=tier)
+                          return_data=True, **kw)
     s2 = armon(p2, restore_from=str(ckpt))
     assert s2.cycles == ref.cycles
     assert s2.final_time == ref.final_time
@@ -48,114 +50,59 @@ def test_resume_bit_exact(tier, tmp_path):
         assert np.array_equal(x, y), var
 
 
-@pytest.mark.slow
-def test_resume_odd_cycle_temporal_fallback(tmp_path):
-    """An ODD resume cycle under temporal blocking cannot reuse the lean
-    K-launch loop (its even/odd schedule mapping assumes even-cycle-aligned
-    launches — the `lean` gate in `solver.armon`), so the restore falls
-    back to the full-state per-cycle loop. The physics must still match an
-    uninterrupted run; the two compiled programs may contract FMAs
-    differently on the CPU backend (~1 ulp class, same caveat family as
-    the cross-layout note in CLAUDE.md), so the gate is ulp-tight allclose
-    rather than bit-equality."""
-    from armon_tpu.core.step import temporal_pairs
-    ref_params, ref = full_run("Sod_circ", 20, kernel_tier="pallas")
-    assert temporal_pairs(ref_params.config) is not None  # K-blocking live
-
-    p1, s1 = full_run("Sod_circ", 7, kernel_tier="pallas")
+def test_resume_odd_cycle_dt_on_even_cycles(tmp_path):
+    """A resume at an ODD cycle under dt_on_even_cycles must keep the
+    saved dt for that cycle (no recompute) exactly like the uninterrupted
+    run (`src/reductions.jl:135`)."""
+    kw = dict(dt_on_even_cycles=True)
+    ref_params, ref = full_run("Sod_circ", 14, **kw)
+    p1, s1 = full_run("Sod_circ", 7, **kw)
     ckpt = tmp_path / "odd.ckpt.npz"
     save_checkpoint(ckpt, p1, s1.data, s1.final_time, s1.cycles, s1.last_dt)
-
-    p2 = reference_params("Sod_circ", np.float64, maxcycle=20,
-                          return_data=True, kernel_tier="pallas")
+    p2 = reference_params("Sod_circ", np.float64, maxcycle=14,
+                          return_data=True, **kw)
     s2 = armon(p2, restore_from=str(ckpt))
-    assert s2.cycles == ref.cycles
-    np.testing.assert_allclose(s2.final_time, ref.final_time, rtol=1e-12)
-
+    assert (s2.cycles, s2.final_time, s2.last_dt) == \
+        (ref.cycles, ref.final_time, ref.last_dt)
     a = gather_state(ref_params, ref.data)
     b = gather_state(p2, s2.data)
     g = ref_params.nghost
     for var in ("rho", "u", "v", "E"):
-        x = getattr(a, var)[g:-g, g:-g]
-        y = getattr(b, var)[g:-g, g:-g]
-        np.testing.assert_allclose(x, y, rtol=1e-12, atol=1e-13,
-                                   err_msg=var)
+        assert np.array_equal(getattr(a, var)[g:-g, g:-g],
+                              getattr(b, var)[g:-g, g:-g]), var
 
 
-def test_resume_cross_tier_fused_to_jnp(tmp_path):
-    """A checkpoint saved from a FUSED-tier run restores correctly into a
-    jnp-tier run: the fused kernels never write the sound speed back, so
-    the saved `state.c` is the cycle-0 EOS value — the first resumed
-    cycle's dt must come from the saved CFL carry, not a reduction over
-    the stale c. Regression for the round-3 review finding (pre-fix:
-    last_dt off by 1e-5 relative, max|u| diff 2e-2 vs the uninterrupted
-    run; tier-equivalence noise is ~1e-12)."""
-    ref_params, ref = full_run("Sod_circ", 20, kernel_tier="pallas")
+def test_resume_from_periodic_checkpoint(tmp_path):
+    """The `checkpoint_step` snapshot written mid-run by the per-cycle
+    driver resumes bit-exactly to the uninterrupted run's end."""
+    ref_params, ref = full_run("Sod", 10)
+    params = reference_params("Sod", np.float64, maxcycle=6,
+                              checkpoint_step=3, output_dir=str(tmp_path),
+                              output_file="run")
+    armon(params)
+    p2 = reference_params("Sod", np.float64, maxcycle=10, return_data=True)
+    s2 = armon(p2, restore_from=str(tmp_path / "run.ckpt.npz"))
+    assert (s2.cycles, s2.final_time, s2.last_dt) == \
+        (ref.cycles, ref.final_time, ref.last_dt)
+    a = gather_state(ref_params, ref.data)
+    b = gather_state(p2, s2.data)
+    g = ref_params.nghost
+    for var in ("rho", "u", "v", "E"):
+        assert np.array_equal(getattr(a, var)[g:-g, g:-g],
+                              getattr(b, var)[g:-g, g:-g]), var
 
-    p1, s1 = full_run("Sod_circ", 8, kernel_tier="pallas")
+
+def test_checkpoint_scalars_roundtrip(tmp_path):
+    """A snapshot holds the fingerprint, t, cycle and dt_prev — read back
+    exactly — and the fields."""
+    p1, s1 = full_run("Sod", 4)
     ckpt = tmp_path / "x.ckpt.npz"
     save_checkpoint(ckpt, p1, s1.data, s1.final_time, s1.cycles, s1.last_dt)
-    _, _, _, _, lm = load_checkpoint(ckpt, p1)
-    assert lm is not None  # the fused carry rode along
-
-    p2 = reference_params("Sod_circ", np.float64, maxcycle=20,
-                          return_data=True, kernel_tier="jnp")
-    s2 = armon(p2, restore_from=str(ckpt))
-    assert s2.cycles == ref.cycles
-    assert abs(s2.last_dt - ref.last_dt) <= 1e-11 * abs(ref.last_dt)
-    a = gather_state(ref_params, ref.data)
-    b = gather_state(p2, s2.data)
-    g = ref_params.nghost
-    for var in ("rho", "u", "v", "E"):
-        x = getattr(a, var)[g:-g, g:-g]
-        y = getattr(b, var)[g:-g, g:-g]
-        assert np.allclose(x, y, rtol=1e-10, atol=1e-12), var
-
-
-def test_explicit_none_local_min_means_no_carry(tmp_path):
-    """save_checkpoint(local_min=None) must record "no carry" (NaN), not
-    silently fall back to a carry recorded by an earlier run on the same
-    params object (stale-fallback regression, round-3 review)."""
-    p1, s1 = full_run("Sod", 4, kernel_tier="pallas")
-    assert getattr(p1, "_final_local_min", None) is not None
-    ckpt = tmp_path / "n.ckpt.npz"
-    save_checkpoint(ckpt, p1, s1.data, s1.final_time, s1.cycles, s1.last_dt,
-                    local_min=None)
-    _, _, _, _, lm = load_checkpoint(ckpt, p1)
-    assert lm is None
-
-
-def test_resumed_jnp_checkpoint_step_drops_stale_carry(tmp_path):
-    """A jnp-tier run resumed from a fused-tier checkpoint consumes the
-    saved CFL carry for its FIRST cycle only; periodic checkpoint_step
-    saves later in that run must record "no carry" (restore from c), not
-    re-save the original checkpoint's now-stale minimum."""
-    p1, s1 = full_run("Sod_circ", 6, kernel_tier="pallas")
-    ckpt = tmp_path / "f.ckpt.npz"
-    save_checkpoint(ckpt, p1, s1.data, s1.final_time, s1.cycles, s1.last_dt)
-    _, _, _, _, lm0 = load_checkpoint(ckpt, p1)
-    assert lm0 is not None
-
-    p2 = reference_params("Sod_circ", np.float64, maxcycle=12,
-                          kernel_tier="jnp", checkpoint_step=3,
-                          output_dir=str(tmp_path), output_file="resumed")
-    armon(p2, restore_from=str(ckpt))
-    _, _, cyc, _, lm = load_checkpoint(tmp_path / "resumed.ckpt.npz", p2)
-    assert cyc == 12
-    assert lm is None  # not the cycle-6 carry from the original file
-
-
-def test_final_local_min_reset_between_runs(tmp_path):
-    """armon() resets the recorded carry at run start: a jnp python-driver
-    checkpoint written after a previous (unrelated) run on the same params
-    object must not inherit that run's carry."""
-    params = reference_params("Sod", np.float64, maxcycle=4,
-                              checkpoint_step=2, kernel_tier="jnp",
-                              output_dir=str(tmp_path), output_file="run")
-    params._final_local_min = 123.0  # an earlier run's leftover
-    armon(params)
-    _, _, _, _, lm = load_checkpoint(tmp_path / "run.ckpt.npz", params)
-    assert lm is None  # jnp tier restores its carry from state.c
+    with np.load(ckpt) as z:
+        scalars = sorted(k for k in z.files if k.startswith("__"))
+    assert scalars == ["__cycles", "__dt_prev", "__fingerprint", "__t"]
+    _, t, cycles, dt_prev = load_checkpoint(ckpt, p1)
+    assert (t, cycles, dt_prev) == (s1.final_time, s1.cycles, s1.last_dt)
 
 
 def test_checkpoint_step_option(tmp_path):
@@ -167,7 +114,7 @@ def test_checkpoint_step_option(tmp_path):
     assert ckpt.exists()
     p2 = reference_params("Sod", np.float64, maxcycle=6,
                           output_dir=str(tmp_path), output_file="run")
-    state, t, cycles, dt_prev, lm = load_checkpoint(ckpt, p2)
+    state, t, cycles, dt_prev = load_checkpoint(ckpt, p2)
     assert cycles == 6 and t > 0
 
 
@@ -209,7 +156,7 @@ def test_resume_per_shard_no_gather(tmp_path, P, monkeypatch):
 
         p2 = reference_params("Sod_circ", np.float64, maxcycle=12, N=N,
                               return_data=True, P=P)
-        state, t, cycles, dt_prev, lm = load_checkpoint(ckpt, p2)
+        state, t, cycles, dt_prev = load_checkpoint(ckpt, p2)
         # the reloaded device blocks are bit-identical to the running ones
         for var in ("rho", "u", "v", "E"):
             a = np.asarray(jax.device_get(getattr(s1.data, var)))
@@ -242,7 +189,7 @@ def test_checkpoint_step_per_shard(tmp_path):
             assert (tmp_path / f"run.ckpt_{cx}×{cy}.npz").exists()
     p2 = reference_params("Sod", np.float64, N=(40, 40), maxcycle=4,
                           P=(2, 2), use_MPI=True)
-    state, t, cycles, dt_prev, lm = load_checkpoint(
+    state, t, cycles, dt_prev = load_checkpoint(
         tmp_path / "run.ckpt.npz", p2)
     assert cycles == 4 and t > 0
 
@@ -329,7 +276,7 @@ def test_reshard_load_is_windowed(tmp_path, monkeypatch):
         return orig(path, params, geom, r0, r1, c0, c1, meta_box, **kw)
 
     monkeypatch.setattr(restart, "_window_from_shards", spy)
-    state, t, cycles, dt_prev, lm = load_checkpoint(ckpt, p2)
+    state, t, cycles, dt_prev = load_checkpoint(ckpt, p2)
     assert windows, "reshard load did not go through the windowed reader"
     assert all(h <= lr and w <= lc for h, w in windows), windows
     # and the loaded state matches a direct same-layout gather of the run

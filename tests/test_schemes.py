@@ -1,22 +1,42 @@
 """Scheme-space coverage: every Riemann scheme x limiter x projection x
-splitting combination must run, conserve, and agree between the jnp and
-fused-Pallas tiers (the reference's scheme options, SURVEY.md §2.5)."""
+splitting combination must run, conserve, and agree bit-for-bit between
+the three drivers — the whole-run jitted loop, the per-cycle host loop and
+the per-substep checkpoint loop (the reference's scheme options,
+SURVEY.md §2.5)."""
 
 import numpy as np
 import pytest
 
 from conftest import reference_params
 
-from armon_tpu import armon
-from armon_tpu.core.solver import make_init, make_jit_loop, gather_state
+from armon_tpu.core.solver import (make_init, make_jit_loop, gather_state,
+                                   _python_cycle_driver)
 
 
 def run(params):
     state = make_init(params)()
     loop = make_jit_loop(params)
-    state, t, cycles, dt, lm, ok = loop(state)
+    state, t, cycles, dt, ok = loop(state)
     assert bool(ok)
     return gather_state(params, state), int(cycles), float(dt), float(t)
+
+
+def run_cycle_driver(params):
+    """The per-cycle host loop: one jitted cycle per call."""
+    state, t, cycles, dt = _python_cycle_driver(params, make_init(params)())
+    return gather_state(params, state), cycles, dt, t
+
+
+def run_substep_driver(params):
+    """The per-substep loop (`_checkpointed_cycle`): every solver sub-step
+    is its own program, with a (no-op) checkpoint hook between them."""
+    state, t, cycles, dt = _python_cycle_driver(
+        params, make_init(params)(), checkpoint=lambda *a, **k: False)
+    return gather_state(params, state), cycles, dt, t
+
+
+DRIVERS = {"jit": run, "cycle": run_cycle_driver,
+           "substep": run_substep_driver}
 
 
 @pytest.mark.parametrize("scheme,limiter", [
@@ -26,31 +46,31 @@ def run(params):
     ("GAD", "superbee"),
 ])
 @pytest.mark.parametrize("projection", ["euler", "euler_2nd"])
-def test_tier_equivalence(scheme, limiter, projection):
+def test_driver_equivalence(scheme, limiter, projection):
     kw = dict(N=(64, 64), maxcycle=8, scheme=scheme, riemann_limiter=limiter,
               projection=projection)
-    _check_tier_equivalence(kw)
+    _check_driver_equivalence(kw)
 
 
 @pytest.mark.parametrize("splitting", ["Godunov", "Strang", "X_only"])
-def test_tier_equivalence_splitting(splitting):
-    """The fused-pair + single-sweep decomposition (Strang) and the
-    parity-alternating orders must match the jnp tier too."""
+def test_driver_equivalence_splitting(splitting):
+    """The repeated-axis schedule (Strang) and the parity-alternating
+    orders must match across the drivers too."""
     kw = dict(N=(64, 64), maxcycle=9, axis_splitting=splitting)
-    _check_tier_equivalence(kw)
+    _check_driver_equivalence(kw)
 
 
-def _check_tier_equivalence(kw):
-    h1, c1, d1, t1 = run(reference_params("Sod_circ", np.float64, **kw))
-    h2, c2, d2, t2 = run(reference_params("Sod_circ", np.float64,
-                                          kernel_tier="pallas", **kw))
-    assert c1 == c2
-    assert abs(d1 - d2) <= 1e-15 * max(1.0, abs(d1))
+def _check_driver_equivalence(kw):
+    runs = {name: drive(reference_params("Sod_circ", np.float64, **kw))
+            for name, drive in DRIVERS.items()}
+    h1, c1, d1, t1 = runs["jit"]
     g = 4
-    for var in ("rho", "u", "v", "E"):
-        a = getattr(h1, var)[g:-g, g:-g]
-        b = getattr(h2, var)[g:-g, g:-g]
-        assert np.allclose(a, b, rtol=1e-11, atol=1e-13), var
+    for name, (h2, c2, d2, t2) in runs.items():
+        assert (c1, d1, t1) == (c2, d2, t2), name
+        for var in ("rho", "u", "v", "E", "p"):
+            a = getattr(h1, var)[g:-g, g:-g]
+            b = getattr(h2, var)[g:-g, g:-g]
+            assert np.array_equal(a, b), f"{name}: {var}"
 
 
 @pytest.mark.parametrize("splitting", ["Sequential", "SequentialSym",
@@ -74,7 +94,7 @@ def test_strang_conserves():
     state = make_init(params)()
     m0, e0 = map(float, cons(state))
     loop = make_jit_loop(params)
-    state, t, cycles, dt, lm, ok = loop(state)
+    state, t, cycles, dt, ok = loop(state)
     m1, e1 = map(float, cons(state))
     assert abs(m0 - m1) <= 1e-12 and abs(e0 - e1) <= 1e-12
 
@@ -111,14 +131,12 @@ def test_dt_on_even_cycles():
     assert dts[4] != dts[5]
 
 
-@pytest.mark.parametrize("scheme,projection,floor,tier", [
-    ("Godunov", "euler", 2, "jnp"),
-    ("Godunov", "euler_2nd", 3, "jnp"),
-    ("GAD", "euler", 3, "jnp"),
-    ("GAD", "euler", 3, "pallas"),
-    ("GAD", "euler_2nd", 4, "pallas"),
+@pytest.mark.parametrize("scheme,projection,floor", [
+    ("Godunov", "euler", 2),
+    ("Godunov", "euler_2nd", 3),
+    ("GAD", "euler", 3),
 ])
-def test_min_ghost_run_matches_deep_ghost(scheme, projection, floor, tier):
+def test_min_ghost_run_matches_deep_ghost(scheme, projection, floor):
     """A run at the minimum ghost depth (stencil sum — see
     test_params.test_nghost_floor_is_sum) must be BIT-identical on the
     real cells to the same run with the default deep ghost band: every
@@ -129,8 +147,7 @@ def test_min_ghost_run_matches_deep_ghost(scheme, projection, floor, tier):
     def real(nghost):
         params = reference_params("Sod_circ", np.float64, N=(64, 53),
                                   maxcycle=10, scheme=scheme,
-                                  projection=projection, nghost=nghost,
-                                  kernel_tier=tier)
+                                  projection=projection, nghost=nghost)
         host, cycles, dt, t = run(params)
         assert cycles == 10 and np.isfinite(dt)
         g = params.nghost
@@ -145,35 +162,30 @@ def test_min_ghost_run_matches_deep_ghost(scheme, projection, floor, tier):
             f"{scheme}+{projection} nghost={floor} vs 6: {v} differs"
 
 
-@pytest.mark.parametrize("tier,routing", [
-    ("jnp", {}),
-    ("pallas", {"pair_threshold": 0}),      # per-sweep kernels
-    ("pallas", {"pair_threshold": 4096}),   # whole-cycle pair kernel
-], ids=["jnp", "per-sweep", "pair"])
+@pytest.mark.parametrize("driver", sorted(DRIVERS))
 @pytest.mark.parametrize("scheme,limiter,projection,dtype", [
     ("Godunov", "no_limiter", "euler", np.float64),
     ("GAD", "minmod", "euler_2nd", np.float64),
     ("GAD", "superbee", "euler_2nd", np.float32),
 ], ids=["godunov-e1-f64", "gad-minmod-e2-f64", "gad-superbee-e2-f32"])
-def test_xy_transpose_symmetry(tier, routing, scheme, limiter, projection,
-                               dtype):
+def test_xy_transpose_symmetry(driver, scheme, limiter, projection, dtype):
     """Sod driven by X sweeps only must be the exact TRANSPOSE of Sod_y
     driven by Y sweeps only — bit-for-bit, with u and v swapped. The two
     problems are the same 1D tube along different memory axes, and every
-    kernel applies the same per-cell float sequence along lanes (X) and
-    sublanes (Y), so the X-sweep path, the Y-sweep path, the limiters,
+    kernel applies the same per-cell float sequence along columns (X) and
+    rows (Y), so the X-sweep path, the Y-sweep path, the limiters,
     the projection and the dt reduction all pin each other. A single
     reordered FMA, an off-by-one stencil on ONE axis, or an asymmetric
     ghost fill breaks the equality. (No reference analog: its X/Y
     kernels are one generated body, `src/kernels.jl`; here the two axes
-    are genuinely different Mosaic strips.)"""
+    are shifts along different array axes.) Each driver
+    compiles its own programs, so each is pinned separately."""
     def solve(test, split, N):
         params = reference_params(test, dtype, N=N, maxcycle=10,
                                   scheme=scheme, riemann_limiter=limiter,
                                   projection=projection,
-                                  axis_splitting=split, kernel_tier=tier,
-                                  **routing)
-        host, cycles, dt, t = run(params)
+                                  axis_splitting=split)
+        host, cycles, dt, t = DRIVERS[driver](params)
         assert cycles == 10
         g = params.nghost
         return {v: np.asarray(getattr(host, v))[g:-g, g:-g]
@@ -191,7 +203,7 @@ def test_xy_transpose_symmetry(tier, routing, scheme, limiter, projection,
 
 def test_xy_transpose_symmetry_mesh():
     """The transpose oracle across the HALO paths: Sod/X_only on a (2,1)
-    device mesh (X-axis ppermute exchange, lane-edge BCs) vs Sod_y/Y_only
+    device mesh (X-axis ppermute exchange, column-edge BCs) vs Sod_y/Y_only
     on (1,2) (Y-axis exchange, row-edge BCs) must still be bit-exact
     transposes — pinning the two exchange directions and the traced
     edge-shard boundary fills against each other."""

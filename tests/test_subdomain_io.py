@@ -24,7 +24,7 @@ from armon_tpu.io.subdomain import (
 def _run(params):
     state = make_init(params)()
     loop = make_jit_loop(params)
-    state, t, cycles, dt, lm, ok = loop(state)
+    state, t, cycles, dt, ok = loop(state)
     assert bool(ok)
     return state, int(cycles)
 
